@@ -4,8 +4,8 @@
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit:
 
-    python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phase kernels  # build + kernel checks only
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --profile   # + the device's busy share in phase 3
 
 Phases:
   1. build   — compile ``dervet_tpu_torch/ops/csrc/fused_chunk.cu`` (nvcc,
@@ -60,6 +60,12 @@ OBJ_RTOL = 1e-3
 
 def log(*a):
     print(*a, flush=True)
+
+
+def check(ok, what) -> None:
+    """A phase's assertion (raised even under ``python -O``)."""
+    if not ok:
+        raise AssertionError(what)
 
 
 def card_line() -> str:
@@ -181,7 +187,8 @@ def kernel_phase():
             int(op.wide_w.shape[0])
         log(f"[kernels] {name}: m={lp.m} n={lp.n} n_eq={lp.n_eq} op={kind}"
             + (f" nb={len(op.offsets)} r={r}" if kind == "banded" else ""))
-        assert fc.supports(op, fc.REFLECTED), f"{name}: kernel declines"
+        check(fc.supports(op, fc.REFLECTED),
+              f"{name}: kernel declines")
         worst = 0.0
         for variant in fc.VARIANTS:
             for B in (1, 129, b_main):
@@ -276,23 +283,24 @@ def check_certified(res, n_windows, what):
     health = res.run_health
     cert = health["certification"]["windows"]
     log(f"[{what}] windows {health['windows']} certification {cert}")
-    assert cert["certified"] + cert["certified_loose"] == n_windows, \
-        f"{what}: {cert} of {n_windows} windows certified"
-    assert health["windows"]["cpu_fallback"] == 0, \
-        f"{what}: CPU-fallback windows {health['windows']}"
-    assert not health["cases_quarantined"], health["quarantine_reasons"]
-    assert health["invariant_audit"]["ok"], health["invariant_audit"]
+    check(cert["certified"] + cert["certified_loose"] == n_windows,
+          f"{what}: {cert} of {n_windows} windows certified")
+    check(health["windows"]["cpu_fallback"] == 0,
+          f"{what}: CPU-fallback windows {health['windows']}")
+    check(not health["cases_quarantined"], health["quarantine_reasons"])
+    check(health["invariant_audit"]["ok"], health["invariant_audit"])
 
 
 def check_ledger(res, kernel, what):
     from dervet_tpu_torch import benchlib
     led = benchlib.validate_solve_ledger(res.solve_ledger)
     dev_groups = [g for g in led["groups"] if g.get("backend") == "torch"]
-    assert dev_groups, f"{what}: no device groups in the ledger"
+    check(dev_groups, f"{what}: no device groups in the ledger")
     for g in dev_groups:
-        assert g["kernel"] == kernel and "kernel_fallback" not in g, \
-            f"{what}: group m={g['m']} n={g['n']} ran {g['kernel']} " \
-            f"({g.get('kernel_fallback')}: {g.get('kernel_fallback_detail')})"
+        check(g["kernel"] == kernel and "kernel_fallback" not in g,
+              f"{what}: group m={g['m']} n={g['n']} ran {g['kernel']} "
+              f"({g.get('kernel_fallback')}: "
+              f"{g.get('kernel_fallback_detail')})")
     log(f"[{what}] phases {res.phase_seconds}")
     log(f"[{what}] ledger totals {json.dumps(led['totals'])}")
     log(f"[{what}] ledger kernel {json.dumps(led['kernel'])} iters "
@@ -304,25 +312,55 @@ def check_ledger(res, kernel, what):
             f"launches={g['kernel_launches']} compact={g['compact_events']}")
 
 
-def main_phases(records):
+def profiled(fn):
+    """Run ``fn`` under torch.profiler and print the device's busy time
+    by kernel name and as a share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us:
+            rows.append((dev_us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"[profile] wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    for dev_us, count, key in rows[:15]:
+        log(f"[profile]   {dev_us / 1e3:10.2f} ms  x{count:<7d} {key[:90]}")
+    return out
+
+
+def main_phases(records, profile=False):
     from dervet_tpu_torch import benchlib
     from dervet_tpu_torch.ops import fused_chunk as fc
     # 3. main path: monthly windows with daily-cycle rows
     cases = benchlib.synthetic_sensitivity_cases(MAIN_CASES,
                                                  daily_cycle_limit=1)
     fc.reset_launch_counts()
-    res, wall = solve_cases(cases, "torch")
+    if profile:
+        res, wall = profiled(lambda: solve_cases(cases, "torch"))
+    else:
+        res, wall = solve_cases(cases, "torch")
     launches = dict(fc.LAUNCHES)
     log(f"[main] {MAIN_CASES} cases x 12 months: {wall:.2f} s wall, "
         f"launches {launches}")
     check_certified(res, MAIN_CASES * 12, "main")
     check_ledger(res, fc.KERNEL_BANDED, "main")
-    assert launches[fc.KERNEL_BANDED] > 0, "banded kernel never launched"
+    check(launches[fc.KERNEL_BANDED] > 0, "banded kernel never launched")
     records[fc.KERNEL_BANDED]["launches"] = launches[fc.KERNEL_BANDED]
     torch_obj = {k: inst.objective_values["Total Objective"]
                  for k, inst in res.instances.items()}
     for k, s in torch_obj.items():
-        assert s.notna().all() and len(s) == 12, f"case {k}: {s}"
+        check(s.notna().all() and len(s) == 12, f"case {k}: {s}")
 
     # 4. dense path: weekly windows
     weekly = benchlib.synthetic_sensitivity_cases(8, n=168)
@@ -335,7 +373,7 @@ def main_phases(records):
         f"wall, launches {launches_w}")
     check_certified(res_w, n_weekly, "dense")
     check_ledger(res_w, fc.KERNEL_DENSE, "dense")
-    assert launches_w[fc.KERNEL_DENSE] > 0, "dense kernel never launched"
+    check(launches_w[fc.KERNEL_DENSE] > 0, "dense kernel never launched")
     records[fc.KERNEL_DENSE]["launches"] = launches_w[fc.KERNEL_DENSE]
 
     # 5. cross-check against exact HiGHS on the first 4 cases
@@ -350,12 +388,14 @@ def main_phases(records):
         worst = max(worst, float(rel))
     log(f"[check] 4 cases x 12 windows vs HiGHS ({wall_c:.2f} s): max "
         f"per-window objective rel {worst:.3e} (limit {OBJ_RTOL})")
-    assert worst < OBJ_RTOL, f"objective rel {worst} vs HiGHS"
+    check(worst < OBJ_RTOL, f"objective rel {worst} vs HiGHS")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path with torch.profiler and "
+                         "print the device's busy share")
     args = ap.parse_args()
     try:
         import torch
@@ -383,10 +423,9 @@ def main() -> int:
     t0 = time.perf_counter()
     records = kernel_phase()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
-    if args.phase == "all":
-        t0 = time.perf_counter()
-        main_phases(records)
-        log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    main_phases(records, profile=args.profile)
+    log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
     card = card_line()
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

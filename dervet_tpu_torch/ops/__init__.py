@@ -1,3 +1,3 @@
 from .lp import LP, LPBuilder, VarRef
-from .pdhg import CompiledLPSolver, PDHGOptions, PDHGResult, solve_lp
+from .pdhg import CompiledLPSolver, PDHGOptions, PDHGResult
 from .cpu_ref import solve_lp_cpu

@@ -426,16 +426,6 @@ class PDHGOptions:
     compact_chunk_iters: int = 4096
     dtype: str = "float32"
 
-    @classmethod
-    def screening(cls, base: Optional["PDHGOptions"] = None,
-                  max_iters: int = 4096) -> "PDHGOptions":
-        """Low-fidelity screening tier: loose tolerances, a short hard
-        budget; never certified."""
-        base = base if base is not None else cls()
-        return dataclasses.replace(
-            base, eps_rel=1e-2, eps_abs=1e-3, max_iters=int(max_iters),
-            inaccurate_factor=1e6, cpu_rescue_after=None)
-
 
 class PDHGResult(NamedTuple):
     x: torch.Tensor          # (B, n) unscaled primal solution
@@ -1233,12 +1223,6 @@ class CompiledLPSolver:
         s.converged[ii] = True
         s.iters_at_conv[ii] = s.total[ii]
         return s
-
-
-def solve_lp(lp: LP, opts: Optional[PDHGOptions] = None,
-             device=None) -> PDHGResult:
-    """One-shot convenience wrapper."""
-    return CompiledLPSolver(lp, opts, device=device).solve()
 
 
 def diagnose_infeasibility(lp: LP, y) -> str:

@@ -2,9 +2,9 @@
 
 Re-designs dervet/MicrogridScenario.py + the storagevet Scenario surface
 (reference :281-346 solves windows one CVXPY problem at a time).  The
-TPU-native difference: optimization windows are grouped by length, every
-same-length group shares one compiled LP structure (K fixed, c/q/l/u per
-window) and solves as a SINGLE batched PDHG call — 12 monthly windows
+batched difference: optimization windows are grouped by length, every
+same-length group shares one preconditioned LP structure (K fixed, c/q/l/u
+per window) and solves as a SINGLE batched PDHG call — 12 monthly windows
 become 3 batched solves (31/30/28-day groups), a multi-year sensitivity
 run becomes a few large batches instead of hundreds of solver calls.
 
@@ -372,9 +372,8 @@ class MicrogridScenario:
 
     # ------------------------------------------------------------------
     # Dispatch runs in phases so that N sensitivity cases can batch their
-    # same-structure windows into ONE device call and shard it over a
-    # multi-chip mesh (VERDICT r2 #3/#7; replaces the reference's serial
-    # per-case for-loop, dervet/DERVET.py:75-83).  ``run_dispatch`` below
+    # same-structure windows into ONE batched device solve (replaces the
+    # reference's serial per-case for-loop, dervet/DERVET.py:75-83).  ``run_dispatch`` below
     # is the driver; ``optimize_problem_loop`` keeps the single-case API.
     # ------------------------------------------------------------------
     def optimize_problem_loop(self, backend: str = "torch",
@@ -429,7 +428,7 @@ class MicrogridScenario:
             # The sizing LP runs on the exact CPU simplex regardless of
             # backend: it is ONE hard, badly-scaled LP solved once per run
             # (size vars ~1e4 against $/kWh costs ~1e-2 stall f32 PDHG),
-            # while the TPU's advantage is the batched operational axis —
+            # while the GPU's advantage is the batched operational axis —
             # the division of labor SURVEY §2.9 prescribes.
             if backend != "cpu":
                 TellUser.info("sizing window routed to the CPU exact solver; "
@@ -708,7 +707,7 @@ class MicrogridScenario:
         # binary on/off cases: the batched backend solves the RELAXATION;
         # only windows whose relaxed solution is not binary-repairable
         # (simultaneous ch/dis, sub-min-power running) re-solve on the
-        # exact CPU MILP — typical windows never leave the TPU
+        # exact CPU MILP — typical windows never leave the device
         if backend != "cpu":
             # check tolerance follows the relaxation's own accuracy so
             # loosened PDHG settings don't read first-order noise as
@@ -1051,11 +1050,9 @@ class SolverCache:
 
 def batch_bucket(n: int) -> int:
     """Service batch grid: the same 4x bucket steps the pdhg active-set
-    compaction uses ({8, 32, 128, 512, ...}) — each distinct batch width
-    is a separate XLA compile, so a serving layer pads its coalesced
-    groups UP to the next bucket and every request mix after warm-up
-    lands on an already-compiled shape.  n <= 1 stays unpadded (the
-    single-instance path is its own program family)."""
+    compaction uses ({8, 32, 128, 512, ...}), so a serving layer that pads
+    its coalesced groups UP to the next bucket runs a handful of batch
+    shapes.  n <= 1 stays unpadded."""
     if n <= 1:
         return n
     b = 8
@@ -1246,7 +1243,7 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
     lps_dev = [lps[i] for i in dev_idx]
     # serving mode (cache.pad_grid): pad the batch axis up to the pdhg
     # compaction-bucket grid so a hot service's varying coalesced batch
-    # widths reuse a handful of compiled shapes; padded rows repeat the
+    # widths reuse a handful of batch shapes; padded rows repeat the
     # last instance and are trimmed below
     if len(lps_dev) != n_mem:
         # subset batch: the staged upload covered the FULL group's
@@ -1260,11 +1257,8 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
     # iterate seeds for the device members: explicit retry seeds, or the
     # plan's near/failed-exact entries.  Zero rows reproduce the cold
     # start member-for-member (clip(0 / dc) == clip(0)), so a partially
-    # seeded batch leaves its cold members' trajectories untouched —
-    # and a memory-active group ALWAYS rides the seeded init program
-    # (zero seeds when nothing matched) so the hot service's program set
-    # is fixed from its first round: a later warm round never pays a
-    # first-seed XLA compile (the never-recompiles contract).
+    # seeded batch leaves its cold members' trajectories untouched; a
+    # memory-active group always seeds (zero seeds when nothing matched).
     X0 = Y0 = None
     if seeds is not None:
         X0, Y0 = (np.asarray(a) for a in seeds)
@@ -1322,11 +1316,9 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                                              Q.shape[0])
             res = solver.solve(c=C, q=Q, l=L, u=U, stats=stats,
                                x0=X0, y0=Y0)
-        # ONE fused device->host fetch of every consumed result field
-        # (x, obj, converged, iters, residuals, status — plus y when the
-        # warm-start memory or the dual certificate wants it) instead of
-        # one fetch per field — seven ~100 ms round trips per group
-        # become one on remote backends.
+        # one device->host fetch of every consumed result field (x, obj,
+        # converged, iters, residuals, status — plus y only when the
+        # warm-start memory or the dual certificate wants it)
         fetched = fetch_result_host(res, stats, want_y=want_y)
         x_h, obj_h, conv_h, iters_h, pr_h, gap_h, st_h, rst_h = fetched[:8]
         y_h = fetched[8] if want_y else None
@@ -1842,8 +1834,7 @@ def resolve_group(items, backend: str, solver_opts, key=None,
     meta = {"rung": "initial", "T": getattr(items[0][1], "T", None),
             "windows": len(items),
             "cases": len({id(s) for (s, _, _) in items})}
-    # elastic dispatch: device placement (+ steal marker) on the group's
-    # ledger entries — the axis the per-device slices are grouped by
+    # caller tags copied onto the group's ledger entries
     if ledger_tags:
         meta.update(ledger_tags)
     # serving layer: which requests' windows rode this group — the
@@ -1853,12 +1844,10 @@ def resolve_group(items, backend: str, solver_opts, key=None,
                     if getattr(s, "request_id", None) is not None})
     if _reqs:
         meta["requests"] = _reqs
-    # telemetry (dervet_tpu/telemetry): one dispatch_group span per
-    # request that rode this group, parented via the request registry
-    # (this may run on any elastic worker thread) — the group's solve-
-    # ledger entry becomes the span's attribute payload at the end, and
-    # the elastic device/stolen tags give the Chrome trace export its
-    # per-device occupancy lanes
+    # telemetry (telemetry/trace.py): one dispatch_group span per request
+    # that rode this group, parented via the request registry (this may
+    # run on a pipeline worker thread) — the group's solve-ledger entry
+    # becomes the span's attribute payload at the end
     _tspans: list = []
     if _reqs and telemetry_trace.enabled():
         for _rid in _reqs:
@@ -2563,8 +2552,7 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
     ``solver_cache`` (a :class:`SolverCache`) lets a LONG-LIVED caller —
     the scenario service — carry compiled solvers and their
     preconditioning across run_dispatch calls: a hot service's steady
-    state pays zero builds and zero XLA compiles for structures it has
-    seen.  This is also the entry point for externally pre-grouped window
+    state pays zero builds for structures it has seen.  This is also the entry point for externally pre-grouped window
     batches: callers coalescing cases from many requests simply pass all
     their scenarios here and the structure-key grouping batches them
     across request boundaries exactly like sensitivity cases.  Default

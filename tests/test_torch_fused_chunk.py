@@ -13,9 +13,9 @@ order).
 
 Also: the row-index wide pair is ``P @ W``; ``supports`` declines what the
 kernels do not take (an ELL residual, a footprint over one block's shared
-memory, a dense K over budget) and takes the multi-DER window; device
-resolution refuses to fall back to the CPU; and, on a machine with a GPU
-(``cuda`` marker), each CUDA kernel against its plain version.
+memory, a dense K over budget) and takes the multi-DER window; and
+device resolution refuses to fall back to the CPU.  The CUDA kernels
+themselves are held against these plain versions in test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -27,8 +27,8 @@ from dervet_tpu_torch.device import resolve_device
 from dervet_tpu_torch.ops import fused_chunk
 from dervet_tpu_torch.ops import pdhg
 
-from test_torch_pdhg import (LPS, assert_close_rows, jax_leaves, lp_pair,
-                             price_batch)
+from test_torch_cuda import ALPHA, assert_close_rows, price_batch
+from test_torch_pdhg import jax_leaves, lp_pair
 
 torch.set_num_threads(2)
 
@@ -91,9 +91,6 @@ def run_port(op, eta, n_eq, data, variant, alpha):
         alpha=alpha, k=t["k"], ax=t["ax"], ay=t["ay"])
     assert fused_chunk.LAUNCHES == before      # CPU tensors: plain version
     return [a.numpy() for a in out]
-
-
-ALPHA = {"vanilla": 1.0, "reflected": 1.8, "halpern": 2.0}
 
 
 @pytest.mark.parametrize("kind,B", [("dense", 3), ("banded", 5),
@@ -240,25 +237,3 @@ def test_cost_model_counts_wide_pair_zeros():
     assert 25 < wide_macs / band_macs < 35
     assert ops > 2 * (band_macs + wide_macs)
     assert nbytes > 4 * (7 * 2976 + 5 * 776)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", sorted(LPS))
-def test_cuda_kernel_matches_plain(kind):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    for variant in ("vanilla", "reflected", "halpern"):
-        js, jlp, data, op, eta = shared_inputs(kind, 129, variant)
-        plain = run_port(op, eta, jlp.n_eq, data, variant, ALPHA[variant])
-        op_c, _, _, eta_c = pdhg.op_from_numpy(*jax_leaves(js), "cuda")
-        t = {k: torch.tensor(v, device="cuda") for k, v in data.items()}
-        name = fused_chunk.kernel_for(op_c)
-        before = fused_chunk.LAUNCHES[name]
-        out = fused_chunk.batched_chunk(
-            op_c, t["c"], t["q"], t["l"], t["u"], t["omega"], eta_c, t["x"],
-            t["y"], t["xs"], t["ys"], jlp.n_eq, ITERS, variant=variant,
-            alpha=ALPHA[variant], k=t["k"], ax=t["ax"], ay=t["ay"])
-        torch.cuda.synchronize()
-        assert fused_chunk.LAUNCHES[name] == before + 1
-        for nm, a, b in zip(("x", "y", "x_sum", "y_sum"), out, plain):
-            assert_close_rows(a.cpu().numpy(), b, nm)

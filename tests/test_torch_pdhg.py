@@ -14,7 +14,6 @@
 """
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 from dervet_tpu.ops import lp as jax_lp
@@ -22,69 +21,15 @@ from dervet_tpu.ops import pdhg as jpdhg
 from dervet_tpu_torch.ops import lp as port_lp
 from dervet_tpu_torch.ops import pdhg
 
+from test_torch_cuda import LPS, assert_close_rows, price_batch
+
 torch.set_num_threads(2)
 
 VARIANTS = ("vanilla", "reflected", "halpern")
 
 
-def mixed_lp(builder, T=48, seed=0):
-    """Battery-like LP with equality (SOE) and inequality (requirement)
-    rows; small enough that ``make_op`` keeps it dense."""
-    rng = np.random.default_rng(seed)
-    b = builder()
-    ch = b.var("ch", T, 0.0, 10.0)
-    dis = b.var("dis", T, 0.0, 10.0)
-    ene = b.var("ene", T, 0.0, 40.0)
-    price = rng.uniform(10, 50, T)
-    b.add_cost(ch, price)
-    b.add_cost(dis, -price)
-    D = sp.diags([np.ones(T), -np.ones(T - 1)], [0, -1])
-    b.add_rows("soe", [(ene, D), (ch, -0.9 * sp.eye(T)),
-                       (dis, (1 / 0.9) * sp.eye(T))], "eq",
-               np.r_[20.0, np.zeros(T - 1)])
-    b.add_rows("req", [(dis, np.ones((1, T)))], "ge", 5.0)
-    return b.build()
-
-
-def banded_lp(builder, T=300, daily_rows=False):
-    """Large enough for the banded decomposition; ``daily_rows`` adds
-    one discharge-energy cap per 24 steps (the daily-cycle shape), which
-    ``make_op`` carries as the low-rank wide-row pair."""
-    rng = np.random.default_rng(2)
-    b = builder()
-    ch = b.var("ch", T, 0.0, 250.0)
-    dis = b.var("dis", T, 0.0, 250.0)
-    ene = b.var("ene", T, 0.0, 1000.0)
-    price = rng.uniform(10, 80, T) / 1000
-    b.add_cost(ch, price)
-    b.add_cost(dis, -price)
-    D = np.eye(T) - np.eye(T, k=-1)
-    rhs = np.zeros(T)
-    rhs[0] = 500.0
-    b.add_rows("soe", [(ene, D), (ch, -0.85), (dis, 1.0)], "eq", rhs)
-    if daily_rows:
-        days = -(-T // 24)
-        S = np.zeros((days, T))
-        for d in range(days):
-            S[d, 24 * d:24 * d + 24] = 1.0
-        b.add_rows("daily_cycle", [(dis, S)], "le", 900.0)
-    return b.build()
-
-
-LPS = {
-    "dense": lambda B: mixed_lp(B),
-    "banded": lambda B: banded_lp(B),
-    "banded_wide": lambda B: banded_lp(B, daily_rows=True),
-}
-
-
 def lp_pair(kind):
     return LPS[kind](jax_lp.LPBuilder), LPS[kind](port_lp.LPBuilder)
-
-
-def price_batch(lp, B, seed=1):
-    rng = np.random.default_rng(seed)
-    return lp.c[None] * rng.uniform(0.8, 1.2, (B, lp.n))
 
 
 def jax_leaves(js):
@@ -133,16 +78,6 @@ def test_preconditioning_and_operator_match(kind):
                                       ps.op.wide_w.numpy())
     else:
         assert ps.op.wide_w is None and js.op.wide_w is None
-
-
-def assert_close_rows(a, b, what, rtol=1e-5, atol=1e-6):
-    """Per instance (row): max |a - b| <= atol + rtol * max |b|.  Norm-wise,
-    not entry-wise: reordered float32 sums leave every entry an error on
-    the scale of the vector's large entries (a near-zero entry fed by
-    terms of size 100 carries ~1e-5 absolute error)."""
-    err = np.abs(a - b).max(axis=-1)
-    bound = atol + rtol * np.abs(b).max(axis=-1)
-    assert np.all(err <= bound), (what, err, bound)
 
 
 @pytest.mark.parametrize("kind", sorted(LPS))
