@@ -95,11 +95,13 @@ class DERVET:
             raise ValueError("from_cases needs at least one case")
         return self
 
-    # "auto" backend routing: below this many windows x cases the batched
-    # solver's set-up cannot amortize against the exact CPU solver's
-    # ~0.2 s/window, so small runs ride HiGHS (the JAX package's
-    # threshold).  Explicit backend="torch"/"cpu" is always honored.
-    AUTO_TORCH_MIN_WINDOWS = 128
+    # "auto" backend routing: below this many windows x cases the card's
+    # near-fixed cost of a solve (its check windows, ~1 s for one monthly
+    # case) loses to exact HiGHS at ~35 ms a monthly window, so small runs
+    # ride HiGHS.  Measured with ``python -m dervet_tpu_torch.crossover``
+    # on one H100 (700 W): HiGHS faster up to 48 windows, the card from
+    # 96 on.  Explicit backend="torch"/"cpu" is always honored.
+    AUTO_TORCH_MIN_WINDOWS = 96
 
     def solve(self, backend: str = "auto", solver_opts=None,
               checkpoint_dir=None, request_id=None, device=None):

@@ -13,8 +13,9 @@ import torch
 
 # PDHG does not converge on single-pass low-precision matrix products:
 # 0 of 256 instances converged when the JAX package's TPU matmuls ran at
-# bf16 DEFAULT precision (PERF.md "Solver precision").  TF32 keeps the
-# same 10-bit mantissa, so every float32 product here runs in true fp32.
+# bf16 DEFAULT precision (the JAX package runs every product at HIGHEST
+# for this reason; PERF.md, "TPU-era record").  TF32 keeps the same
+# 10-bit mantissa, so every float32 product here runs in true fp32.
 # The chunk kernels themselves are plain fp32 FMAs (no tensor cores).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

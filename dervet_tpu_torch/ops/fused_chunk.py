@@ -415,20 +415,26 @@ def batched_chunk(op, c, q, l, u, omega, eta, x, y, xs, ys, n_eq: int,
 
 
 def chunk_cost(kernel: str, B: int, m: int, n: int, iters: int,
-               nb: int = 0, r: int = 0, variant: str = VANILLA
-               ) -> tuple[int, int]:
+               nb: int = 0, r: int = 0, variant: str = VANILLA,
+               nnz: Optional[int] = None) -> tuple[int, int]:
     """(bytes, fp32 operations) one launch needs at least: every input
-    read once and every output written once, and the arithmetic of the
-    iteration as the kernel computes it (dense W / K products included,
-    zeros and all).  The elementwise count per iteration is 9 operations
-    per x entry and 6 per y entry (projection, step, reflected point,
-    running sum) plus 5 each for a reflected and 9 each for a halpern
-    relaxation."""
+    read once and every output written once, and the iteration's
+    arithmetic.  Without ``nnz`` the matrix is counted as the kernel
+    stores and multiplies it (band diagonals and the dense W, or the
+    dense K, zeros and all).  With ``nnz``, the non-zeros of the scaled
+    K, it is counted as the function needs it: each non-zero read once
+    and used in one multiply-add of K x and one of K^T y.  The
+    elementwise count per iteration is 9 operations per x entry and 6
+    per y entry (projection, step, reflected point, running sum) plus 5
+    each for a reflected and 9 each for a halpern relaxation."""
     halp = variant == HALPERN
     per_inst = 4 * (5 * n + 3 * m + 2) + 4 * (2 * n + 2 * m)
     if halp:
         per_inst += 4 * (n + m + 1)
-    if kernel == KERNEL_BANDED:
+    if nnz is not None:
+        shared = 4 * nnz
+        macs = 2 * nnz
+    elif kernel == KERNEL_BANDED:
         shared = 4 * (nb * m + nb + r * n + r)
         macs = 2 * nb * m + 2 * r * n
     else:

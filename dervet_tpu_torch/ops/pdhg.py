@@ -394,9 +394,10 @@ def op_rmatvec(op: MatOp, y: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class PDHGOptions:
     """The JAX package's options with identical defaults (see its field
-    notes).  Renamed: ``fused_chunk`` (was ``pallas_chunk``) switches the
-    CUDA chunk kernels.  Dropped: ``precision`` (every product here is
-    true fp32, see ``device.py``) and ``chunk_iters`` (it sized the JAX
+    notes).  Dropped: ``pallas_chunk`` (the chunk kernels run whenever
+    ``fused_chunk.supports`` takes the op; there is no switch that sends
+    card tensors down the plain path), ``precision`` (every product here
+    is true fp32, see ``device.py``) and ``chunk_iters`` (it sized the JAX
     single-instance driver; every solve here is batched and uses
     ``compact_chunk_iters``).  ``dtype`` is a numpy dtype name."""
     eps_abs: float = 1e-6
@@ -420,7 +421,6 @@ class PDHGOptions:
     eps_infeas: float = 1e-6
     inaccurate_factor: float = 10.0
     dense_bytes_limit: int = 32 * 1024 * 1024
-    fused_chunk: bool = True
     cpu_rescue_after: Optional[int] = 65536
     cpu_rescue_max: int = 64
     compact_chunk_iters: int = 4096
@@ -924,11 +924,9 @@ KERNEL_PLAIN = "torch_plain"
 
 # Machine-stable reasons a group ran the plain chunk (the ledger's
 # per-group record and its aggregation key on exactly these values)
-FALLBACK_OPTION_DISABLED = "option_disabled"
 FALLBACK_BACKEND = "backend"
 FALLBACK_UNSUPPORTED_SHAPE = "unsupported_shape"
-KERNEL_FALLBACK_REASONS = (FALLBACK_OPTION_DISABLED, FALLBACK_BACKEND,
-                           FALLBACK_UNSUPPORTED_SHAPE)
+KERNEL_FALLBACK_REASONS = (FALLBACK_BACKEND, FALLBACK_UNSUPPORTED_SHAPE)
 
 
 def kernel_selection(solver: "CompiledLPSolver"
@@ -938,9 +936,6 @@ def kernel_selection(solver: "CompiledLPSolver"
     ``KERNEL_FALLBACK_REASONS``.  On a CPU device the wrapper runs the
     kernel's plain version, recorded as the ``backend`` reason."""
     v = solver.variant
-    if not solver.opts.fused_chunk:
-        return (KERNEL_PLAIN, FALLBACK_OPTION_DISABLED,
-                "fused_chunk disabled in solver options")
     if not fused_chunk.supports(solver.op, v):
         return (KERNEL_PLAIN, FALLBACK_UNSUPPORTED_SHAPE,
                 f"op shape unsupported by the chunk kernels under "
@@ -1005,10 +1000,9 @@ class CompiledLPSolver:
         # reaches rebuilt solvers, and observables report what this one runs
         self.variant = resolved_variant(self.opts)
         self.restart_scheme = resolved_restart_scheme(self.opts)
-        use_kernel = (self.opts.fused_chunk
-                      and fused_chunk.supports(self.op, self.variant))
-        self._solver = _Solver(self.opts, self.lp.m, self.lp.n, self.lp.n_eq,
-                               use_kernel=use_kernel)
+        self._solver = _Solver(
+            self.opts, self.lp.m, self.lp.n, self.lp.n_eq,
+            use_kernel=fused_chunk.supports(self.op, self.variant))
 
     def _note_exec(self, program: str, shape, stats) -> None:
         key = (program, tuple(shape))

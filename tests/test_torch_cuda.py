@@ -85,6 +85,63 @@ def price_batch(lp, B, seed=1):
     return lp.c[None] * rng.uniform(0.8, 1.2, (B, lp.n))
 
 
+def random_state(l_s, u_s, m, B, seed=0):
+    """An arbitrary (not mid-solve) chunk state for scaled bounds
+    ``l_s``/``u_s`` (B, n): x and the primal anchor uniform in the box
+    (infinite sides cut at +-10), y and the dual anchor standard normal,
+    primal weights lognormal(0, 1), halpern inner counts in [0, 64).
+    Float32 numpy arrays (k int32)."""
+    rng = np.random.default_rng(seed)
+    lo = np.where(np.isfinite(l_s), l_s, -10.0)
+    hi = np.where(np.isfinite(u_s), u_s, 10.0)
+    B_, n = lo.shape
+    out = dict(x=lo + (hi - lo) * rng.random((B, n)),
+               ax=lo + (hi - lo) * rng.random((B, n)),
+               y=rng.standard_normal((B, m)), ay=rng.standard_normal((B, m)),
+               xs=rng.standard_normal((B, n)), ys=rng.standard_normal((B, m)),
+               omega=rng.lognormal(0.0, 1.0, B))
+    out = {k: v.astype(np.float32) for k, v in out.items()}
+    out["k"] = rng.integers(0, 64, B).astype(np.int32)
+    return out
+
+
+def rel_gap(a, ref):
+    """max |a - ref| / (1 + max |ref|) over one output tensor."""
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(a - ref).max() / (1.0 + np.abs(ref).max()))
+
+
+# An fp32 chunk that differs from the float64 run of the plain version by
+# no more than this many times the largest gap of the fp32 plain version
+# run on the same inputs and on ROUNDING_RUNS copies whose x and y moved
+# by one ulp (plus a floor of one part in a million) differs by rounding
+# alone.  From an arbitrary state the gap concentrates in a few
+# instances, so one fp32 run alone is no yardstick.
+ROUNDING_FACTOR = 4.0
+ROUNDING_FLOOR = 1e-6
+ROUNDING_RUNS = 4
+
+
+def rounding_spread(run32, t, ref):
+    """Per output tensor, the largest ``rel_gap`` to ``ref`` (float64
+    outputs) of ``run32`` (dict of tensors -> fp32 outputs) on ``t`` and
+    on ROUNDING_RUNS copies whose x and y moved by one ulp at random."""
+    gen = torch.Generator().manual_seed(0)
+
+    def nudge(v):
+        sign = torch.randint(-1, 2, tuple(v.shape), generator=gen)
+        return v * (1.0 + sign.to(v.device, v.dtype) * 2.0 ** -23)
+
+    ref = [h.cpu().numpy() for h in ref]
+    spread = [0.0] * len(ref)
+    for i in range(ROUNDING_RUNS + 1):
+        d = dict(t) if i == 0 else {**t, "x": nudge(t["x"]),
+                                    "y": nudge(t["y"])}
+        spread = [max(s, rel_gap(o.cpu().numpy(), h))
+                  for s, o, h in zip(spread, run32(d), ref)]
+    return spread
+
+
 def assert_close_rows(a, b, what, rtol=1e-5, atol=1e-6):
     """Per instance (row): max |a - b| <= atol + rtol * max |b|.  Norm-wise,
     not entry-wise: reordered float32 sums leave every entry an error on
@@ -143,6 +200,61 @@ def test_kernel_matches_plain(cuda, kind, variant):
     for nm, a, b in zip(("x", "y", "x_sum", "y_sum"), out, plain):
         assert torch.isfinite(a).all()
         assert_close_rows(a.cpu().numpy(), b.cpu().numpy(), nm)
+
+
+def plain_chunk_as(dtype, op, n_eq, t, tau, sig, iters, variant, alpha):
+    """The kernel's plain version on the tensors of dict ``t`` and the op,
+    cast to ``dtype``; ``tau``/``sig`` are cast from the float32 step
+    sizes the kernel gets."""
+    d = {k: v.to(dtype) for k, v in t.items()}
+    extra = ((d["k"], d["ax"], d["ay"]) if variant == "halpern"
+             else (None, None, None))
+    common = (d["c"], d["q"], d["l"], d["u"], tau.to(dtype), sig.to(dtype),
+              d["x"], d["y"], d["xs"], d["ys"])
+    if isinstance(op, pdhg.BandedOp):
+        W = None if op.wide_w is None else op.wide_w.to(dtype)
+        return fused_chunk.banded_chunk_plain(
+            *common, op.diags.to(dtype), op.offsets_t, op.wide_rows, W, n_eq,
+            iters, variant, alpha, *extra)
+    return fused_chunk.dense_chunk_plain(*common, op.Kh.to(dtype), n_eq,
+                                         iters, variant, alpha, *extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(LPS))
+@pytest.mark.parametrize("variant", sorted(ALPHA))
+def test_kernel_from_random_state_differs_by_rounding(cuda, kind, variant):
+    """From an arbitrary state the chunk amplifies float32 rounding (most
+    on the all-equality banded op); the kernel sits no farther from the
+    float64 run of the plain version than ROUNDING_FACTOR times the
+    float32 plain runs do (``rounding_spread``)."""
+    lp = LPS[kind](port_lp.LPBuilder)
+    solver = pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(), device=cuda)
+    B = 129
+    C = torch.tensor(price_batch(lp, B), dtype=torch.float32, device=cuda)
+    Q, L, U = (torch.tensor(np.broadcast_to(a, (B, a.size)).copy(),
+                            dtype=torch.float32, device=cuda)
+               for a in (lp.q, lp.l, lp.u))
+    ctx = solver._solver._context(C, Q, L, U, solver.dr, solver.dc)
+    st = random_state(ctx.l_s.cpu().numpy(), ctx.u_s.cpu().numpy(), lp.m, B)
+    t = {k: torch.tensor(v, device=cuda) for k, v in st.items()}
+    t.update(c=ctx.c_s, q=ctx.q_s, l=ctx.l_s, u=ctx.u_s)
+    out = fused_chunk.batched_chunk(
+        solver.op, t["c"], t["q"], t["l"], t["u"], t["omega"], solver.eta,
+        t["x"], t["y"], t["xs"], t["ys"], lp.n_eq, 32, variant,
+        ALPHA[variant], t["k"], t["ax"], t["ay"])
+    tau = (solver.eta / t["omega"]).contiguous()
+    sig = (solver.eta * t["omega"]).contiguous()
+
+    def run(dtype, d):
+        return plain_chunk_as(dtype, solver.op, lp.n_eq, d, tau, sig, 32,
+                              variant, ALPHA[variant])
+
+    p64 = run(torch.float64, t)
+    spread = rounding_spread(lambda d: run(torch.float32, d), t, p64)
+    for nm, a, h, s in zip(("x", "y", "x_sum", "y_sum"), out, p64, spread):
+        gk = rel_gap(a.cpu().numpy(), h.cpu().numpy())
+        assert gk <= ROUNDING_FACTOR * s + ROUNDING_FLOOR, (nm, gk, s)
 
 
 @pytest.mark.cuda

@@ -206,4 +206,12 @@ def test_options_defaults_match_reference():
               "dense_bytes_limit", "cpu_rescue_after", "cpu_rescue_max",
               "compact_chunk_iters"):
         assert getattr(ours, f) == getattr(ref, f), f
-    assert ours.fused_chunk is True and ref.pallas_chunk is True
+    # the port keeps every option but the kernel switch and the two that
+    # only the JAX driver reads; nothing can send card tensors down the
+    # plain chunk path
+    import dataclasses
+    names = {f.name for f in dataclasses.fields(pdhg.PDHGOptions)}
+    ref_names = {f.name for f in dataclasses.fields(jpdhg.PDHGOptions)}
+    assert names == ref_names - {"pallas_chunk", "precision", "chunk_iters"}
+    assert pdhg.KERNEL_FALLBACK_REASONS == (pdhg.FALLBACK_BACKEND,
+                                            pdhg.FALLBACK_UNSUPPORTED_SHAPE)

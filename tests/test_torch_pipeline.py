@@ -100,3 +100,24 @@ def test_port_solve_ledger(pdhg_runs):
         assert g["kernel_fallback"] == "backend"
         assert g["kernel_launches"] == 0 and g["device"] == "cpu"
     assert led["kernel"]["fallback_reasons"] == {"backend": len(groups)}
+
+
+def test_auto_backend_threshold(monkeypatch):
+    """``backend="auto"`` sends runs below ``AUTO_TORCH_MIN_WINDOWS`` to
+    exact HiGHS and runs at or above it to the device (the threshold the
+    crossover script measured on the card)."""
+    import dervet_tpu_torch.api as api
+    seen = []
+
+    def fake_dispatch(scenarios, backend, **kw):
+        seen.append((len(scenarios), backend, kw.get("device")))
+        raise RuntimeError("stop after routing")
+
+    monkeypatch.setattr("dervet_tpu_torch.scenario.scenario.run_dispatch",
+                        fake_dispatch)
+    assert api.DERVET.AUTO_TORCH_MIN_WINDOWS == 96
+    for n_cases, months in ((1, 2), (8, 12)):
+        cases = benchlib.synthetic_sensitivity_cases(n_cases, months=months)
+        with pytest.raises(RuntimeError, match="stop after routing"):
+            DERVET.from_cases(cases).solve(device="cpu")
+    assert seen == [(1, "cpu", "cpu"), (8, "torch", "cpu")]
