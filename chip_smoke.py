@@ -9,18 +9,23 @@ CUDA toolkit:
 
 Phases:
   1. build   — compile ``dervet_tpu_torch/ops/csrc/fused_chunk.cu`` (nvcc,
-               sm_90a) and print ptxas's register/shared-memory report;
+               sm_90a) and print each kernel instance's registers, stack
+               and spills from ptxas; fails on a spill;
   2. kernels — each chunk kernel against its plain PyTorch version after
                one chunk of 32 iterations, at every shape phases 3 and 4
-               run (at their batch, and at B = 1 and 129) and at two more
-               (all-equality rows without the wide-row pair; mixed
-               equality/inequality rows on the dense op), three step
+               run (at their batch, and at B = 1 and 129) and at three
+               more (all-equality rows without the wide-row pair; mixed
+               equality/inequality rows on the dense op; the ICE + CHP
+               monthly window, 2233 x 5952 with seven bands), three step
                variants each: from the solver's mid-solve state, and from
                an arbitrary state against the float64 plain run; then
-               each kernel's and its plain version's time at its main
-               shape (CUDA events, warm) beside the least time the card
-               could take for the work the function needs, and for the
-               work as the kernel computes it (dense W and K, zeros too);
+               each kernel's device time a launch at its main shape
+               (torch.profiler; CUDA events where the profiler records
+               none) and its plain version's (CUDA events, warm) beside
+               the least time the card could take for the work the
+               function needs (K's non-zeros), and for the work as the
+               kernel stores and computes it (padded band diagonals,
+               compact forms);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -89,6 +94,40 @@ def card_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def ptxas_report(build_log):
+    """One record per compiled kernel instance from ptxas's ``-v``
+    report: kernel name, template arguments (variant, threads, columns
+    and rows a thread), registers, stack frame and spill bytes."""
+    import re
+    recs, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?$", line.strip())
+        if m:
+            cur = None
+            k = re.search(r"(banded|dense)_chunk_kernelI((?:Li-?\d+E)+)E",
+                          m.group(1))
+            if k:
+                cur = recs.setdefault(m.group(1), {
+                    "kernel": f"{k.group(1)}_chunk_kernel",
+                    "template": [int(v) for v in
+                                 re.findall(r"Li(-?\d+)E", k.group(2))],
+                    "registers": None, "stack": 0, "spill_stores": 0,
+                    "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return sorted(recs.values(), key=lambda r: (r["kernel"], r["template"]))
 
 
 # ---------------------------------------------------------------------------
@@ -230,27 +269,13 @@ def rel_gap(a, ref) -> float:
     return ((a - ref).abs().max() / (1.0 + ref.abs().max())).item()
 
 
-def matrix_nnz(op) -> int:
-    """Non-zeros of the scaled K the op carries (bands + wide pair, or
-    the dense K)."""
-    from dervet_tpu_torch.ops.pdhg import BandedOp
-    if isinstance(op, BandedOp):
-        nnz = int((op.diags != 0).sum())
-        if op.wide_w is not None:
-            nnz += int((op.wide_w != 0).sum())
-        return nnz
-    return int((op.Kh != 0).sum())
-
-
-def bound(kname, op, B, m, n, variant, nnz=None):
-    """(bound ms, bound_by, bytes, operations) of one launch."""
+def bound(op, B, m, n, variant, needed):
+    """(bound ms, bound_by, bytes, operations) of one launch, K counted
+    as the function needs it or as the kernel stores and computes it."""
     from dervet_tpu_torch.ops import fused_chunk as fc
-    from dervet_tpu_torch.ops.pdhg import BandedOp
-    banded = isinstance(op, BandedOp)
-    r = 0 if not banded or op.wide_w is None else int(op.wide_w.shape[0])
-    nbytes, ops = fc.chunk_cost(kname, B, m, n, CHUNK_ITERS,
-                                nb=len(op.offsets) if banded else 0, r=r,
-                                variant=variant, nnz=nnz)
+    k_bytes, k_macs = fc.matrix_work(op, needed=needed)
+    nbytes, ops = fc.chunk_cost(B, m, n, CHUNK_ITERS, k_bytes, k_macs,
+                                variant)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -271,6 +296,31 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, name):
+    """Mean device time of one launch of the kernel whose name contains
+    ``name`` over ``reps`` calls of ``fn``, from torch.profiler's CUDA
+    activity (the kernel alone, without the wrapper's host work, which
+    a stream timer also counts when the kernel is shorter than it);
+    None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            total += dev_us
+            count += evt.count
+    return total / count / 1e3 if count and total else None
+
+
 def kernel_phase():
     """Returns ({kernel name: record} for the kernels JSON line,
     {kernel name: set of (m, n) checked})."""
@@ -278,14 +328,16 @@ def kernel_phase():
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import (BandedOp, CompiledLPSolver,
                                            PDHGOptions)
+    from dervet_tpu_torch import benchlib
     alpha_of = {fc.VANILLA: 1.0, fc.REFLECTED: 1.8, fc.HALPERN: 2.0}
     monthly, weekly = window_lps("month", 1), window_lps(168, 0)
     # (name, lp, the path's batch, timed for the kernels line): the groups
     # the main path runs (31-, 30- and 28-day months x MAIN_CASES) and the
     # weekly run's (52 weeks and the 24-hour remainder x WEEKLY_CASES),
-    # then two shapes neither runs, for coverage: the monthly op with
-    # all-equality rows (no wide pair) and the weekly op with mixed
-    # equality/inequality rows
+    # then three shapes neither runs, for coverage: the monthly op with
+    # all-equality rows (no wide pair), the weekly op with mixed
+    # equality/inequality rows, and the ICE + CHP monthly window (the
+    # largest thread configuration)
     shapes = [
         ("banded 31d", monthly[744], 7 * MAIN_CASES, True),
         ("banded 30d", monthly[720], 4 * MAIN_CASES, False),
@@ -295,6 +347,8 @@ def kernel_phase():
         ("banded all-eq", window_lps("month", 0)[744], 7 * MAIN_CASES,
          False),
         ("dense mixed", window_lps(168, 1)[168], 52 * WEEKLY_CASES, False),
+        ("banded ICE+CHP", benchlib.multi_der_window_lp(), MAIN_CASES,
+         False),
     ]
     records, checked, failures = {}, {k: set() for k in fc.KERNELS}, []
     for name, lp, b_main, timed in shapes:
@@ -302,11 +356,13 @@ def kernel_phase():
         op = solver.op
         kname = fc.kernel_for(op)
         banded = isinstance(op, BandedOp)
-        r = 0 if not banded or op.wide_w is None else int(op.wide_w.shape[0])
-        nnz = matrix_nnz(op)
+        part = op.compact
+        nnz = fc.matrix_work(op, needed=True)[1] // 2
         log(f"[kernels] {name}: m={lp.m} n={lp.n} n_eq={lp.n_eq} "
-            f"{kname} nnz(K)={nnz}"
-            + (f" nb={len(op.offsets)} r={r}" if banded else ""))
+            f"{kname} nnz(K)={nnz} config={fc.config_for(lp.m, lp.n)} "
+            f"compact rows={part.indptr.shape[0] - 1} "
+            f"entries={part.nnz} cmax={part.col_rows.shape[1]}"
+            + (f" nb={len(op.offsets)}" if banded else ""))
         check(fc.supports(op, fc.REFLECTED), f"{name}: kernel declines")
         checked[kname].add((lp.m, lp.n))
         worst_abs, worst_rand = 0.0, (0.0, 0.0)
@@ -351,16 +407,27 @@ def kernel_phase():
         # timing at the path's batch, the product's default variant
         variant = fc.REFLECTED
         inputs = chunk_inputs(solver, b_main, seed=7)
-        ms = time_ms(lambda: fc.batched_chunk(
-            op, inputs[0].c_s, inputs[0].q_s, inputs[0].l_s, inputs[0].u_s,
-            inputs[1], solver.eta, *inputs[2:6], lp.n_eq, CHUNK_ITERS,
-            variant, 1.8, *inputs[6:]), 20)
+        def launch():
+            fc.batched_chunk(op, inputs[0].c_s, inputs[0].q_s,
+                             inputs[0].l_s, inputs[0].u_s, inputs[1],
+                             solver.eta, *inputs[2:6], lp.n_eq, CHUNK_ITERS,
+                             variant, 1.8, *inputs[6:])
+
+        # the kernel's own device time; a stream timer around the call
+        # also counts the wrapper's host work, which exceeds a short
+        # kernel's time
+        call_ms = time_ms(launch, 20)
+        ms = device_ms(launch, 20, kname)
+        timer = "profiler"
+        if ms is None:
+            ms, timer = call_ms, "events"
         plain_ms = time_ms(lambda: plain_chunk(solver, inputs, variant, 1.8,
                                                torch.float32), 3)
-        need = bound(kname, op, b_main, lp.m, lp.n, variant, nnz=nnz)
-        stored = bound(kname, op, b_main, lp.m, lp.n, variant)
+        need = bound(op, b_main, lp.m, lp.n, variant, needed=True)
+        stored = bound(op, b_main, lp.m, lp.n, variant, needed=False)
         log(f"[kernels] {name} timing B={b_main} {variant} x{CHUNK_ITERS}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound of the "
+            f"kernel {ms:.4f} ms ({timer}; {call_ms:.4f} ms a call), plain "
+            f"{plain_ms:.4f} ms; bound of the "
             f"work needed {need[0]:.4f} ms by {need[1]} ({need[2]} B, "
             f"{need[3]} fp32 ops); bound as computed {stored[0]:.4f} ms by "
             f"{stored[1]} ({stored[2]} B, {stored[3]} fp32 ops)")
@@ -378,7 +445,8 @@ def kernel_phase():
         rs["plain_f32_runs"] = max(rs["plain_f32_runs"], worst_rand[1])
         if timed:
             rec.update({
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": need[0],
+                "ms": ms, "ms_timer": timer, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bound_ms": need[0],
                 "bound_by": need[1], "library_ms": None,
                 "bound_as_computed_ms": stored[0],
                 "bound_as_computed_by": stored[1],
@@ -544,10 +612,18 @@ def main() -> int:
     t0 = time.perf_counter()
     so = fc.build()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in fc.BUILD_LOG.splitlines():
-        if "registers" in line or "Compiling entry" in line \
-                or "spill" in line:
-            log(f"[build] {line.strip()}")
+    report = ptxas_report(fc.BUILD_LOG)
+    for rec in report:
+        v, t, cpt, rpt, minb = rec["template"]
+        log(f"[build] {rec['kernel']}<variant={v}, threads={t}, "
+            f"cols/thread={cpt}, rows/thread={rpt}, blocks/SM={minb}>: "
+            f"{rec['registers']} "
+            f"registers, {rec['stack']} B stack, {rec['spill_stores']} B "
+            f"spill stores, {rec['spill_loads']} B spill loads")
+    check(len(report) == 2 * 3 * len(fc.CONFIGS),
+          f"ptxas reported {len(report)} kernel instances")
+    spilled = [r for r in report if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"kernel instances spill registers: {spilled}")
     t0 = time.perf_counter()
     records, checked = kernel_phase()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")

@@ -99,6 +99,54 @@ def synthetic_sensitivity_cases(n_cases: int, year: int = 2017,
     return out
 
 
+def multi_der_window_lp(seed: int = 0):
+    """The first monthly window LP (2233 x 5952) of the JAX package's
+    ICE + CHP microgrid case (``synthetic_case(multi_der=True)`` there):
+    this package's Battery + PV window plus an ICE (2 x 1 MW, fuel 2.5
+    $/MMBtu at heat rate 11, O&M 0.004), a CHP (800 kW, O&M 0.003, 0.0015
+    kW electric per BTU/hr of steam or hot water recovered) and the site's
+    hot-water load, assembled here with ``LPBuilder`` because the ICE and
+    CHP models are not ported yet.  The shape of the largest window the
+    chunk kernels take (seven bands)."""
+    from .ops.lp import LPBuilder
+    from .scenario.scenario import MicrogridScenario
+    case = synthetic_case(seed=seed)
+    scen = MicrogridScenario(case)
+    scen.prepare_dispatch("cpu")
+    ctx = scen.windows[0]
+    base = scen.build_window_lp(ctx, scen._annuity_scalar,
+                                scen._requirements)
+    T = ctx.T
+    b = LPBuilder()
+    refs = {name: b.var(name, r.size, base.l[r.sl], base.u[r.sl])
+            for name, r in base.var_refs.items()}
+    for name, r in base.var_refs.items():
+        b.add_cost(refs[name], base.c[r.sl])
+    price = base.c[base.var_refs["Battery-1/ch"].sl]
+    ice = b.var("ICE-1/elec", T, 0.0, 2000.0)
+    b.add_cost(ice, 2.5 * 11.0 + 0.004 - price)
+    chp = b.var("CHP-1/elec", T, 0.0, 800.0)
+    b.add_cost(chp, 0.003 - price)
+    steam = b.var("CHP-1/steam", T, 0.0, np.inf)
+    hot = b.var("CHP-1/hotwater", T, 0.0, np.inf)
+    K = base.K.tocsr()
+    for name, spans in base.row_groups.items():
+        for r0, r1 in spans:
+            b.add_rows(name, [(refs[v], K[r0:r1, r.sl])
+                              for v, r in base.var_refs.items()],
+                       "eq", base.q[r0:r1])
+    b.add_rows("CHP-1/heat_recovery", [(chp, -1.0), (steam, 0.0015),
+                                       (hot, 0.0015)], "eq", 0.0)
+    # the hot-water load of the JAX package's case, year-long, sliced
+    ts = case.datasets.time_series
+    rng = np.random.default_rng(seed + 1)
+    hours = ts.index.hour.to_numpy()
+    load = 1e5 * (2.0 + np.sin(2 * np.pi * (hours - 6) / 24)
+                  + 0.2 * rng.standard_normal(len(ts)))
+    b.add_rows("thermal_hotwater", [(hot, 1.0)], "ge", load[:T])
+    return b.build()
+
+
 # solve-ledger schema: the observable contract the tests and chip_smoke.py assert.
 # Every group entry must carry the batch shape + wall clock; device
 # entries additionally carry the device-traffic split and the kernel.

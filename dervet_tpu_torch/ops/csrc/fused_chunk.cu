@@ -4,8 +4,8 @@
 //
 // What they replace (dervet_tpu/ops/pallas_chunk.py):
 //   banded_chunk_kernel  <- _banded_chunk_kernel (:246), built by
-//                           _build_banded_call (:367)
-//   dense_chunk_kernel   <- _chunk_kernel (:105), built by _build_call (:182)
+//                           _build_banded_call (:368)
+//   dense_chunk_kernel   <- _chunk_kernel (:105), built by _build_call (:183)
 //
 // The iteration (one application of the PDHG operator T, then the step
 // variant), for one instance with per-instance tau = eta/omega and
@@ -19,37 +19,71 @@
 //              lam = (k + 1) / (k + 2), k counting on from k0
 //   x_sum += x, y_sum += y after every iteration.
 //
-// Design.  The TPU kernels block 128 instances per grid step so the MXU
-// sees (128, m) @ (m, n) products.  Here each thread block owns ONE
-// instance (B blocks; 1536 at the smoke's monthly fan-out fills the 132
-// SMs many times over), 512 threads.  The instance's x, 2x1 - x, x_sum,
-// c, l, u (x space) and y, y_sum, q (y space) live in shared memory for
-// the whole chunk, so the iterate never leaves the SM between the two
-// dependent phases of an iteration (K^T y feeds the x projection, whose
-// reflected point feeds K x; a __syncthreads separates them).  Matrix
-// data shared by the batch (the band diagonals and the wide-row values W,
-// or the dense K) is read through L2 on every iteration.
-//   banded: out[i] = sum_b diags[b, i] x[i + d_b];  out[j] = sum_b
-//           diags[b, j - d_b] y[j - d_b]; the low-rank wide pair
-//           K_wide = P @ W travels as the row index of each P column
-//           (wide_rows), so K_wide x adds (W x)_k at row wide_rows[k]
-//           and K_wide^T y adds sum_k y[wide_rows[k]] W[k, j].
-//   dense:  K^T y with one thread per column (coalesced rows of K), K x
-//           with one warp per row and a shuffle reduction.
-// Products are plain fp32 FMAs: no TF32, no tensor cores (PDHG does not
-// converge on single-pass low-precision products, PERF.md).
+// How K is stored.  Both kernels read K only as (a) nb band diagonals,
+// K[i, i + d_b] = diags[b, i] (the banded op; none for the dense op),
+// and (b) a compact sparse part over r rows with nnz entries, built once
+// per operator on the host (dervet_tpu_torch/ops/pdhg.py, CompactK):
+//   by column: for the nc columns from col_lo on, each column's entries
+//              padded to cmax, as (K's row, value, the entry's position
+//              in row-major order); padding sits at the tail as (row 0,
+//              value 0, position nnz);
+//   by row:    indptr, row k owning positions [indptr[k], indptr[k+1]),
+//              with row_slot[i] = the compact row of K's row i, or -1.
+// For the banded op the compact part is the wide-row pair (31 daily-cycle
+// rows at the monthly window: 24 entries each, at most 1 per column);
+// for the dense op it is all of K (at most 4 entries per row, 2 per
+// column at the weekly window).  No zero of K is stored or multiplied,
+// except the bands' ends and the column padding.
 //
-// What bounds it.  At the monthly window with daily-cycle rows (m=776,
-// n=2976, 4 bands, r=31 wide rows) an iteration costs 2*4*776 ~ 6.2k MACs
-// of band work and 2*31*2976 ~ 185k MACs of wide-pair work per instance,
-// although only 743 of W's 92,256 values are non-zero (0.8%).  So the
-// banded kernel, like the TPU kernel it replaces, spends ~30x the band
-// work on W's zeros and is bound by operations (fp32 FMA rate, with W
-// streamed from L2), not by bytes: each launch moves the instance state
-// in and out once, ~100 KB per instance.  Exploiting W's sparsity is
-// left for later.  The dense kernel (weekly windows, K 169x672 = 454 KB,
-// too large for one block's shared memory) streams K from L2 twice per
-// iteration; it is bound by operations as well (2*m*n MACs/iteration).
+// Design.  One thread block owns one instance.  Thread t of T owns
+// columns t + s*T (s < CPT) and rows t + s*T (s < RPT), and keeps what
+// only the owner touches in registers for the whole chunk: x and x_sum
+// per column; y, y_sum, q and the row's compact slot per row.  Shared
+// memory holds what other threads read -- 2 x1 - x with a zero halo, y,
+// the band diagonals, the compact forms and one product per compact
+// entry -- plus c, l, u and the halpern anchors, which only the owner
+// reads but which would cost registers the occupancy needs.  Everything
+// of K is staged into shared memory once per launch.  An iteration is
+// two phases separated by __syncthreads:
+//   columns: g = K^T y (band b adds diags[b, j - d_b] y[j - d_b] when
+//            0 <= j - d_b < m, a predicate and no branch; then the
+//            column's compact entries, skipped by a register bitmask for
+//            columns that have none), the primal update, 2 x1 - x to
+//            shared memory, and each compact entry's product
+//            value * (2 x1 - x)[j] at its row-major position;
+//   rows:    K (2 x1 - x) (band b reads 2 x1 - x at i + d_b, inside the
+//            halo, no test); a row with a compact slot adds the sum of
+//            its positions itself (24 shared loads at the monthly
+//            window), so the wide rows need no third barrier, no
+//            cross-thread reduction and no dependent global loads; the
+//            dual update, y to shared memory.
+// The thread configurations (T, CPT, RPT) are template parameters so the
+// state arrays are registers; the wrapper picks the smallest that covers
+// the shape (CONFIGS, mirrored in ops/fused_chunk.py).  The band
+// offsets ride in the kernel's parameters (constant bank, a uniform
+// read).
+//
+// Tensor cores are not used.  K is shared by the batch, so its products
+// could run as (B, m)(m, n) matrix products on wgmma, as the TPU's MXU
+// ran them.  But PDHG needs true fp32 products (PERF.md: 0/256 converged
+// on single-pass low-precision ones), which leaves 3xTF32 at best, and
+// at 0.8% density fp32 FMAs on the ~4.5k non-zeros do less work than any
+// dense tensor-core product of W.
+//
+// What bounds it.  At the monthly window (m=776, n=2976, 4 bands, 743
+// wide entries) an instance-iteration needs ~7.7k multiply-adds and
+// ~50k element-wise operations; a launch moves the instance state in and
+// out once (~100 KB an instance).  So the bound is the fp32 operation
+// rate (0.028 ms at B=896, 32 iterations).  What the kernel adds to that
+// is instructions (index arithmetic and predicates for every band of
+// every column, shared-memory loads) and two barriers per iteration;
+// one block's iteration is a dependent chain of them, so the time goes
+// with the blocks an SM runs at once and the work each thread does
+// serially.  At the monthly shape a block is 512 threads, 6 columns and
+// 2 rows a thread, 64 registers and 75 KB of shared memory, two blocks
+// per SM.  Measured on an H100 (PERF.md, PR 2): 256 threads with 12
+// columns each take 1.6x as long per block, and holding them to 80
+// registers for three blocks per SM spills.
 //
 // Interface: plain C, loaded with ctypes.  Every entry takes device
 // pointers, sizes and the CUDA stream, launches on that stream, does not
@@ -60,258 +94,328 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBands = 32;
 
 enum Variant { kVanilla = 0, kReflected = 1, kHalpern = 2 };
+
+struct ChunkArgs {
+  const float *c, *q, *l, *u, *tau, *sig, *x, *y, *xs, *ys, *k0, *ax, *ay;
+  float *xo, *yo, *xso, *yso;
+  const float* diags;     // (nb, m) or null
+  const int* row_slot;    // (m,) compact row of K's row i, or -1
+  const int* indptr;      // (r + 1,) positions of each compact row
+  const int* col_rows;    // (nc, cmax) K's row of each column entry
+  const float* col_vals;  // (nc, cmax)
+  const int* col_pos;     // (nc, cmax) the entry's position (nnz: padding)
+  int off[kMaxBands];     // band offsets d_b
+  int nb, hxl, hxr, r, nnz, col_lo, nc, cmax, m, n, n_eq, iters;
+  float alpha;
+};
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
 // projection onto the dual cone: free on equality rows, >= 0 otherwise
-__device__ __forceinline__ float yproj(float v, int i, int n_eq) {
-  return i < n_eq ? v : fmaxf(v, 0.0f);
+__device__ __forceinline__ float yproj(float v, bool eq) {
+  return eq ? v : fmaxf(v, 0.0f);
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
+// shared 4-byte words one block uses (fused_chunk.smem_bytes mirrors it)
+__host__ __device__ __forceinline__ size_t smem_words(const ChunkArgs& a,
+                                                      bool halpern) {
+  return 4 * (size_t)a.n + a.hxl + a.hxr + a.m + (size_t)a.nb * a.m +
+         3 * (size_t)a.nc * a.cmax + (a.r + 1) + (a.nnz + 1) +
+         (halpern ? (size_t)a.n + a.m : 0);
+}
+
+template <int V, int T, int CPT, int RPT>
+__device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
+  static_assert(CPT <= 32, "the compact-column bitmask is 32 bits");
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int m = a.m, n = a.n, nb = a.nb, hxl = a.hxl, cmax = a.cmax;
+  const int col_lo = a.col_lo, ncm = a.nc * cmax;
+  float* sc = smem;                    // (n) c, l, u
+  float* sl = sc + n;
+  float* su = sl + n;
+  float* sxb = su + n;                 // (hxl + n + hxr) 2 x1 - x
+  float* sy = sxb + hxl + n + a.hxr;   // (m) y
+  float* sdg = sy + m;                 // (nb, m) band diagonals
+  int* scr = reinterpret_cast<int*>(sdg + (size_t)nb * m);  // column form
+  float* scv = reinterpret_cast<float*>(scr + ncm);
+  int* scp = reinterpret_cast<int*>(scv + ncm);
+  int* sip = scp + ncm;                // (r + 1) indptr
+  float* sprod = reinterpret_cast<float*>(sip + a.r + 1);  // (nnz + 1)
+  float* sax = sprod + a.nnz + 1;      // halpern anchors (n), then (m)
+  float* say = sax + n;
+  const float* xb = sxb + hxl;         // xb[j] = (2 x1 - x)[j]
+  const size_t ox = (size_t)b * n, oy = (size_t)b * m;
+
+  float x[CPT], xs[CPT];
+  float y[RPT], ys[RPT], q[RPT];
+  int slot[RPT];
+  unsigned has_compact = 0u;           // bit s: column s has entries
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  return s;
-}
-
-// Primal half of one iteration for column j, given g = (K^T y)[j]:
-// writes the reflected point 2 x1 - x and the variant's new x.
-template <int V>
-__device__ __forceinline__ void primal_update(
-    int j, float g, float tau, float alpha, float lam, const float* ax_g,
-    float* sx, float* sxb, float* sxs, const float* sc, const float* sl,
-    const float* su) {
-  const float x = sx[j];
-  const float l = sl[j], u = su[j];
-  const float x1 = clip(x - tau * (sc[j] - g), l, u);
-  sxb[j] = 2.0f * x1 - x;
-  float xn;
-  if (V == kVanilla) {
-    xn = x1;
-  } else if (V == kReflected) {
-    xn = clip(x + alpha * (x1 - x), l, u);
-  } else {
-    const float xr = x + alpha * (x1 - x);
-    xn = clip(lam * xr + (1.0f - lam) * ax_g[j], l, u);
+  for (int s = 0; s < CPT; ++s) {
+    const int j = tid + s * T;
+    x[s] = xs[s] = 0.0f;
+    if (j < n) {
+      x[s] = a.x[ox + j];
+      xs[s] = a.xs[ox + j];
+      sc[j] = a.c[ox + j];
+      sl[j] = a.l[ox + j];
+      su[j] = a.u[ox + j];
+      if constexpr (V == kHalpern) sax[j] = a.ax[ox + j];
+      const int c = j - col_lo;
+      if (c >= 0 && c < a.nc && a.col_vals[(size_t)c * cmax] != 0.0f)
+        has_compact |= 1u << s;
+    }
   }
-  sx[j] = xn;
-  sxs[j] += xn;
-}
-
-// Dual half of one iteration for row i, given kx = (K (2 x1 - x))[i].
-template <int V>
-__device__ __forceinline__ void dual_update(
-    int i, float kx, float sig, float alpha, float lam, int n_eq,
-    const float* ay_g, float* sy, float* sys, const float* sq) {
-  const float y = sy[i];
-  const float y1 = yproj(y + sig * (sq[i] - kx), i, n_eq);
-  float yn;
-  if (V == kVanilla) {
-    yn = y1;
-  } else if (V == kReflected) {
-    yn = yproj(y + alpha * (y1 - y), i, n_eq);
-  } else {
-    const float yr = y + alpha * (y1 - y);
-    yn = yproj(lam * yr + (1.0f - lam) * ay_g[i], i, n_eq);
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = tid + s * T;
+    y[s] = ys[s] = q[s] = 0.0f;
+    slot[s] = -1;
+    if (i < m) {
+      y[s] = a.y[oy + i];
+      ys[s] = a.ys[oy + i];
+      q[s] = a.q[oy + i];
+      if constexpr (V == kHalpern) say[i] = a.ay[oy + i];
+      slot[s] = a.row_slot[i];
+      sy[i] = y[s];
+    }
   }
-  sy[i] = yn;
-  sys[i] += yn;
-}
-
-// Shared-memory carve-up common to both kernels: x space then y space.
-struct Smem {
-  float *sx, *sxb, *sxs, *sc, *sl, *su, *sy, *sys, *sq;
-};
-
-__device__ __forceinline__ Smem carve(float* base, int m, int n) {
-  Smem s;
-  s.sx = base;
-  s.sxb = s.sx + n;
-  s.sxs = s.sxb + n;
-  s.sc = s.sxs + n;
-  s.sl = s.sc + n;
-  s.su = s.sl + n;
-  s.sy = s.su + n;
-  s.sys = s.sy + m;
-  s.sq = s.sys + m;
-  return s;
-}
-
-__device__ __forceinline__ void load_state(
-    const Smem& s, int b, int m, int n, const float* c, const float* q,
-    const float* l, const float* u, const float* x, const float* y,
-    const float* xs, const float* ys) {
-  const size_t ox = (size_t)b * n, oy = (size_t)b * m;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    s.sx[j] = x[ox + j];
-    s.sxs[j] = xs[ox + j];
-    s.sc[j] = c[ox + j];
-    s.sl[j] = l[ox + j];
-    s.su[j] = u[ox + j];
+  for (int t = tid; t < hxl; t += T) sxb[t] = 0.0f;
+  for (int t = tid; t < a.hxr; t += T) sxb[hxl + n + t] = 0.0f;
+  for (int t = tid; t < nb * m; t += T) sdg[t] = a.diags[t];
+  for (int t = tid; t < ncm; t += T) {
+    scr[t] = a.col_rows[t];
+    scv[t] = a.col_vals[t];
+    scp[t] = a.col_pos[t];
   }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    s.sy[i] = y[oy + i];
-    s.sys[i] = ys[oy + i];
-    s.sq[i] = q[oy + i];
-  }
-}
-
-__device__ __forceinline__ void store_state(
-    const Smem& s, int b, int m, int n, float* xo, float* yo, float* xso,
-    float* yso) {
-  const size_t ox = (size_t)b * n, oy = (size_t)b * m;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    xo[ox + j] = s.sx[j];
-    xso[ox + j] = s.sxs[j];
-  }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    yo[oy + i] = s.sy[i];
-    yso[oy + i] = s.sys[i];
-  }
-}
-
-template <int V>
-__global__ void __launch_bounds__(kThreads) banded_chunk_kernel(
-    const float* __restrict__ c, const float* __restrict__ q,
-    const float* __restrict__ l, const float* __restrict__ u,
-    const float* __restrict__ tau_v, const float* __restrict__ sig_v,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ xs, const float* __restrict__ ys,
-    const float* __restrict__ diags, const int* __restrict__ offsets,
-    int nb, const int* __restrict__ wide_rows,
-    const float* __restrict__ wide_w, int r,
-    const float* __restrict__ k0_v, const float* __restrict__ ax,
-    const float* __restrict__ ay, float* __restrict__ xo,
-    float* __restrict__ yo, float* __restrict__ xso,
-    float* __restrict__ yso, int m, int n, int n_eq, int iters,
-    float alpha) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  Smem s = carve(smem, m, n);
-  float* swide = s.sq + m;                          // (r) W @ (2 x1 - x)
-  int* soff = reinterpret_cast<int*>(swide + r);    // (nb) band offsets
-  int* sslot = soff + nb;                           // (m) row -> wide k
-  load_state(s, b, m, n, c, q, l, u, x, y, xs, ys);
-  for (int t = threadIdx.x; t < nb; t += blockDim.x) soff[t] = offsets[t];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) sslot[i] = -1;
-  __syncthreads();
-  for (int k = threadIdx.x; k < r; k += blockDim.x) sslot[wide_rows[k]] = k;
-  const float tau = tau_v[b], sig = sig_v[b];
-  const float* ax_g = (V == kHalpern) ? ax + (size_t)b * n : nullptr;
-  const float* ay_g = (V == kHalpern) ? ay + (size_t)b * m : nullptr;
-  float kf = (V == kHalpern) ? k0_v[b] : 0.0f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = tid; t <= a.r; t += T) sip[t] = a.indptr[t];
+  const float tau = a.tau[b], sig = a.sig[b], alpha = a.alpha;
+  float kf = (V == kHalpern) ? a.k0[b] : 0.0f;
   __syncthreads();
 
-  for (int it = 0; it < iters; ++it) {
+  for (int it = 0; it < a.iters; ++it) {
     const float lam = (V == kHalpern) ? (kf + 1.0f) / (kf + 2.0f) : 0.0f;
-    // phase 1: g = K^T y, then the primal update
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      float g = 0.0f;
-      for (int bb = 0; bb < nb; ++bb) {
-        const int i = j - soff[bb];
-        if (i >= 0 && i < m) g = fmaf(diags[(size_t)bb * m + i], s.sy[i], g);
+    // columns: g = K^T y, then the primal update and the compact
+    // entries' products (K x's share of them) at their positions
+    float g[CPT];
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) g[s] = 0.0f;
+    for (int bb = 0; bb < nb; ++bb) {
+      const int d = a.off[bb];
+      const float* dg = sdg + (size_t)bb * m;
+#pragma unroll
+      for (int s = 0; s < CPT; ++s) {
+        const int i = tid + s * T - d;
+        if ((unsigned)i < (unsigned)m) g[s] = fmaf(dg[i], sy[i], g[s]);
       }
-      if (r) {
+    }
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      if (has_compact >> s & 1u) {
+        const int e = (tid + s * T - col_lo) * cmax;
         float gw = 0.0f;
-        for (int k = 0; k < r; ++k)
-          gw = fmaf(s.sy[wide_rows[k]], wide_w[(size_t)k * n + j], gw);
-        g += gw;
+        for (int p = 0; p < cmax; ++p)
+          gw = fmaf(sy[scr[e + p]], scv[e + p], gw);
+        g[s] += gw;
       }
-      primal_update<V>(j, g, tau, alpha, lam, ax_g, s.sx, s.sxb, s.sxs,
-                       s.sc, s.sl, s.su);
+    }
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      const int j = tid + s * T;
+      if (j < n) {
+        const float lo = sl[j], hi = su[j], xv = x[s];
+        const float x1 = clip(xv - tau * (sc[j] - g[s]), lo, hi);
+        const float xbv = 2.0f * x1 - xv;
+        sxb[hxl + j] = xbv;
+        if (has_compact >> s & 1u) {
+          const int e = (j - col_lo) * cmax;
+          for (int p = 0; p < cmax; ++p) sprod[scp[e + p]] = scv[e + p] * xbv;
+        }
+        float xn;
+        if constexpr (V == kVanilla) {
+          xn = x1;
+        } else if constexpr (V == kReflected) {
+          xn = clip(xv + alpha * (x1 - xv), lo, hi);
+        } else {
+          const float xr = xv + alpha * (x1 - xv);
+          xn = clip(lam * xr + (1.0f - lam) * sax[j], lo, hi);
+        }
+        x[s] = xn;
+        xs[s] += xn;
+      }
     }
     __syncthreads();
-    // phase 2a: the wide rows' products W @ (2 x1 - x), one warp per row
-    for (int k = warp; k < r; k += kWarps) {
-      float acc = 0.0f;
-      const float* wk = wide_w + (size_t)k * n;
-      for (int j = lane; j < n; j += 32) acc = fmaf(wk[j], s.sxb[j], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) swide[k] = acc;
+    // rows: K (2 x1 - x), then the dual update
+    float kx[RPT];
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) kx[s] = 0.0f;
+    for (int bb = 0; bb < nb; ++bb) {
+      const int d = a.off[bb];
+      const float* dg = sdg + (size_t)bb * m;
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) {
+        const int i = tid + s * T;
+        if (i < m) kx[s] = fmaf(dg[i], xb[i + d], kx[s]);
+      }
     }
-    if (r) __syncthreads();
-    // phase 2b: K (2 x1 - x), then the dual update
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      float kx = 0.0f;
-      for (int bb = 0; bb < nb; ++bb) {
-        const int j = i + soff[bb];
-        if (j >= 0 && j < n) kx = fmaf(diags[(size_t)bb * m + i], s.sxb[j], kx);
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const int i = tid + s * T;
+      if (i < m) {
+        const int k = slot[s];
+        if (k >= 0) {
+          float w = 0.0f;
+          const int p1 = sip[k + 1];
+#pragma unroll 4
+          for (int p = sip[k]; p < p1; ++p) w += sprod[p];
+          kx[s] += w;
+        }
+        const bool eq = i < a.n_eq;
+        const float yv = y[s];
+        const float y1 = yproj(yv + sig * (q[s] - kx[s]), eq);
+        float yn;
+        if constexpr (V == kVanilla) {
+          yn = y1;
+        } else if constexpr (V == kReflected) {
+          yn = yproj(yv + alpha * (y1 - yv), eq);
+        } else {
+          const float yr = yv + alpha * (y1 - yv);
+          yn = yproj(lam * yr + (1.0f - lam) * say[i], eq);
+        }
+        y[s] = yn;
+        ys[s] += yn;
+        sy[i] = yn;
       }
-      if (r) {
-        const int k = sslot[i];
-        if (k >= 0) kx += swide[k];
-      }
-      dual_update<V>(i, kx, sig, alpha, lam, n_eq, ay_g, s.sy, s.sys, s.sq);
     }
     __syncthreads();
     if (V == kHalpern) kf += 1.0f;
   }
-  store_state(s, b, m, n, xo, yo, xso, yso);
+#pragma unroll
+  for (int s = 0; s < CPT; ++s) {
+    const int j = tid + s * T;
+    if (j < n) {
+      a.xo[ox + j] = x[s];
+      a.xso[ox + j] = xs[s];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = tid + s * T;
+    if (i < m) {
+      a.yo[oy + i] = y[s];
+      a.yso[oy + i] = ys[s];
+    }
+  }
 }
 
-template <int V>
-__global__ void __launch_bounds__(kThreads) dense_chunk_kernel(
-    const float* __restrict__ c, const float* __restrict__ q,
-    const float* __restrict__ l, const float* __restrict__ u,
-    const float* __restrict__ tau_v, const float* __restrict__ sig_v,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ xs, const float* __restrict__ ys,
-    const float* __restrict__ K, const float* __restrict__ k0_v,
-    const float* __restrict__ ax, const float* __restrict__ ay,
-    float* __restrict__ xo, float* __restrict__ yo,
-    float* __restrict__ xso, float* __restrict__ yso, int m, int n,
-    int n_eq, int iters, float alpha) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  Smem s = carve(smem, m, n);
-  load_state(s, b, m, n, c, q, l, u, x, y, xs, ys);
-  const float tau = tau_v[b], sig = sig_v[b];
-  const float* ax_g = (V == kHalpern) ? ax + (size_t)b * n : nullptr;
-  const float* ay_g = (V == kHalpern) ? ay + (size_t)b * m : nullptr;
-  float kf = (V == kHalpern) ? k0_v[b] : 0.0f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
+// The arguments stay in the kernel's parameter space (__grid_constant__):
+// the band offsets are read there with a loop index, without a copy.
+template <int V, int T, int CPT, int RPT, int MINB>
+__global__ void __launch_bounds__(T, MINB)
+    banded_chunk_kernel(const __grid_constant__ ChunkArgs a) {
+  chunk_body<V, T, CPT, RPT>(a);
+}
 
-  for (int it = 0; it < iters; ++it) {
-    const float lam = (V == kHalpern) ? (kf + 1.0f) / (kf + 2.0f) : 0.0f;
-    // phase 1: g = K^T y (one thread per column), then the primal update
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      float g = 0.0f;
-      for (int i = 0; i < m; ++i) g = fmaf(K[(size_t)i * n + j], s.sy[i], g);
-      primal_update<V>(j, g, tau, alpha, lam, ax_g, s.sx, s.sxb, s.sxs,
-                       s.sc, s.sl, s.su);
-    }
-    __syncthreads();
-    // phase 2: K (2 x1 - x) (one warp per row), then the dual update
-    for (int i = warp; i < m; i += kWarps) {
-      float acc = 0.0f;
-      const float* ki = K + (size_t)i * n;
-      for (int j = lane; j < n; j += 32) acc = fmaf(ki[j], s.sxb[j], acc);
-      acc = warp_sum(acc);
-      if (lane == 0)
-        dual_update<V>(i, acc, sig, alpha, lam, n_eq, ay_g, s.sy, s.sys, s.sq);
-    }
-    __syncthreads();
-    if (V == kHalpern) kf += 1.0f;
-  }
-  store_state(s, b, m, n, xo, yo, xso, yso);
+template <int V, int T, int CPT, int RPT, int MINB>
+__global__ void __launch_bounds__(T, MINB)
+    dense_chunk_kernel(const __grid_constant__ ChunkArgs a) {
+  chunk_body<V, T, CPT, RPT>(a);
 }
 
 template <typename KernelT>
-cudaError_t prepare(KernelT kernel, size_t smem_bytes) {
-  if (smem_bytes > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem_bytes);
-  return cudaSuccess;
+cudaError_t launch(KernelT kernel, int threads, int B, size_t smem,
+                   cudaStream_t st, const ChunkArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // shared memory before L1, so that the blocks the registers allow fit
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The thread configurations (threads, columns a thread, rows a thread,
+// blocks per SM the launch bounds hold the registers to), in the order
+// the wrapper tries them; ops/fused_chunk.py CONFIGS mirrors this list.
+#define FOR_EACH_CONFIG(X) \
+  X(128, 2, 1, 2) X(256, 3, 1, 2) X(512, 6, 2, 2) X(768, 8, 3, 1)
+
+template <int V>
+cudaError_t dispatch(bool banded, int threads, int cpt, int rpt, int minb,
+                     int B, size_t smem, cudaStream_t st,
+                     const ChunkArgs& a) {
+#define TRY_CONFIG(T_, C_, R_, M_)                                          \
+  if (threads == T_ && cpt == C_ && rpt == R_ && minb == M_)                \
+    return banded                                                           \
+        ? launch(banded_chunk_kernel<V, T_, C_, R_, M_>, T_, B, smem, st, a) \
+        : launch(dense_chunk_kernel<V, T_, C_, R_, M_>, T_, B, smem, st, a);
+  FOR_EACH_CONFIG(TRY_CONFIG)
+#undef TRY_CONFIG
+  return cudaErrorInvalidValue;
+}
+
+int run(bool banded, const float* c, const float* q, const float* l,
+        const float* u, const float* tau, const float* sig, const float* x,
+        const float* y, const float* xs, const float* ys, const float* k0,
+        const float* ax, const float* ay, float* xo, float* yo, float* xso,
+        float* yso, const int* row_slot, const int* indptr,
+        const int* col_rows, const float* col_vals, const int* col_pos,
+        int r, int nnz, int col_lo, int nc, int cmax, int B, int m, int n,
+        int n_eq, int iters, int variant, float alpha, int threads, int cpt,
+        int rpt, int minb, const float* diags, const int* offsets, int nb,
+        void* stream) {
+  if (nb < 0 || nb > kMaxBands || (long long)threads * cpt < n ||
+      (long long)threads * rpt < m)
+    return (int)cudaErrorInvalidValue;
+  ChunkArgs a = {c,  q,  l,  u,  tau, sig,      x,       y,        xs,
+                 ys, k0, ax, ay, xo,  yo,       xso,     yso,      diags,
+                 row_slot, indptr, col_rows, col_vals, col_pos};
+  int dmin = 0, dmax = 0;
+  for (int t = 0; t < nb; ++t) {
+    a.off[t] = offsets[t];
+    dmin = (t == 0 || offsets[t] < dmin) ? offsets[t] : dmin;
+    dmax = (t == 0 || offsets[t] > dmax) ? offsets[t] : dmax;
+  }
+  a.nb = nb;
+  a.hxl = dmin < 0 ? -dmin : 0;
+  a.hxr = m + dmax - n > 0 && nb ? m + dmax - n : 0;
+  a.r = r;
+  a.nnz = nnz;
+  a.col_lo = col_lo;
+  a.nc = nc;
+  a.cmax = cmax;
+  a.m = m;
+  a.n = n;
+  a.n_eq = n_eq;
+  a.iters = iters;
+  a.alpha = alpha;
+  const size_t smem = sizeof(float) * smem_words(a, variant == kHalpern);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (variant) {
+    case kVanilla:
+      err = dispatch<kVanilla>(banded, threads, cpt, rpt, minb, B, smem, st, a);
+      break;
+    case kReflected:
+      err = dispatch<kReflected>(banded, threads, cpt, rpt, minb, B, smem, st,
+                                 a);
+      break;
+    case kHalpern:
+      err = dispatch<kHalpern>(banded, threads, cpt, rpt, minb, B, smem, st, a);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -322,69 +426,39 @@ const char* fused_chunk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared-memory bytes one block of each kernel needs (the wrapper's
-// supports() budget uses the same formula).
-size_t banded_chunk_smem_bytes(int m, int n, int nb, int r) {
-  return sizeof(float) * (6 * (size_t)n + 3 * (size_t)m + r) +
-         sizeof(int) * ((size_t)nb + m);
-}
-
-size_t dense_chunk_smem_bytes(int m, int n) {
-  return sizeof(float) * (6 * (size_t)n + 3 * (size_t)m);
-}
-
 int banded_chunk(const float* c, const float* q, const float* l,
                  const float* u, const float* tau, const float* sig,
                  const float* x, const float* y, const float* xs,
-                 const float* ys, const float* diags, const int* offsets,
-                 int nb, const int* wide_rows, const float* wide_w, int r,
-                 const float* k0, const float* ax, const float* ay,
-                 float* xo, float* yo, float* xso, float* yso, int B, int m,
-                 int n, int n_eq, int iters, int variant, float alpha,
+                 const float* ys, const float* k0, const float* ax,
+                 const float* ay, float* xo, float* yo, float* xso,
+                 float* yso, const int* row_slot, const int* indptr,
+                 const int* col_rows, const float* col_vals,
+                 const int* col_pos, int r, int nnz, int col_lo, int nc,
+                 int cmax, int B, int m, int n, int n_eq, int iters,
+                 int variant, float alpha, int threads, int cpt, int rpt,
+                 int minb, const float* diags, const int* offsets, int nb,
                  void* stream) {
-  const size_t smem = banded_chunk_smem_bytes(m, n, nb, r);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define LAUNCH_BANDED(V)                                                    \
-  err = prepare(banded_chunk_kernel<V>, smem);                              \
-  if (err != cudaSuccess) return (int)err;                                  \
-  banded_chunk_kernel<V><<<B, kThreads, smem, st>>>(                        \
-      c, q, l, u, tau, sig, x, y, xs, ys, diags, offsets, nb, wide_rows,   \
-      wide_w, r, k0, ax, ay, xo, yo, xso, yso, m, n, n_eq, iters, alpha)
-  switch (variant) {
-    case kVanilla: LAUNCH_BANDED(kVanilla); break;
-    case kReflected: LAUNCH_BANDED(kReflected); break;
-    case kHalpern: LAUNCH_BANDED(kHalpern); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH_BANDED
-  return (int)cudaGetLastError();
+  return run(true, c, q, l, u, tau, sig, x, y, xs, ys, k0, ax, ay, xo, yo,
+             xso, yso, row_slot, indptr, col_rows, col_vals, col_pos, r, nnz,
+             col_lo, nc, cmax, B, m, n, n_eq, iters, variant, alpha, threads,
+             cpt, rpt, minb, diags, offsets, nb, stream);
 }
 
 int dense_chunk(const float* c, const float* q, const float* l,
                 const float* u, const float* tau, const float* sig,
                 const float* x, const float* y, const float* xs,
-                const float* ys, const float* K, const float* k0,
-                const float* ax, const float* ay, float* xo, float* yo,
-                float* xso, float* yso, int B, int m, int n, int n_eq,
-                int iters, int variant, float alpha, void* stream) {
-  const size_t smem = dense_chunk_smem_bytes(m, n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define LAUNCH_DENSE(V)                                                     \
-  err = prepare(dense_chunk_kernel<V>, smem);                               \
-  if (err != cudaSuccess) return (int)err;                                  \
-  dense_chunk_kernel<V><<<B, kThreads, smem, st>>>(                         \
-      c, q, l, u, tau, sig, x, y, xs, ys, K, k0, ax, ay, xo, yo, xso, yso,  \
-      m, n, n_eq, iters, alpha)
-  switch (variant) {
-    case kVanilla: LAUNCH_DENSE(kVanilla); break;
-    case kReflected: LAUNCH_DENSE(kReflected); break;
-    case kHalpern: LAUNCH_DENSE(kHalpern); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH_DENSE
-  return (int)cudaGetLastError();
+                const float* ys, const float* k0, const float* ax,
+                const float* ay, float* xo, float* yo, float* xso,
+                float* yso, const int* row_slot, const int* indptr,
+                const int* col_rows, const float* col_vals,
+                const int* col_pos, int r, int nnz, int col_lo, int nc,
+                int cmax, int B, int m, int n, int n_eq, int iters,
+                int variant, float alpha, int threads, int cpt, int rpt,
+                int minb, void* stream) {
+  return run(false, c, q, l, u, tau, sig, x, y, xs, ys, k0, ax, ay, xo, yo,
+             xso, yso, row_slot, indptr, col_rows, col_vals, col_pos, r, nnz,
+             col_lo, nc, cmax, B, m, n, n_eq, iters, variant, alpha, threads,
+             cpt, rpt, minb, nullptr, nullptr, 0, stream);
 }
 
 }  // extern "C"

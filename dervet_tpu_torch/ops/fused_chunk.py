@@ -8,12 +8,18 @@ both in ``csrc/fused_chunk.cu``:
 
 * ``banded_chunk`` — K as ``nb`` static diagonals plus the optional
   low-rank wide-row pair (``BandedOp``, every monthly window);
-* ``dense_chunk`` — dense K (``DenseOp``, short windows such as weekly).
+* ``dense_chunk`` — the dense op's K (``DenseOp``, short windows such as
+  weekly).
 
-Each wrapper takes its plain PyTorch version only for tensors on the CPU
-(the tests); for CUDA tensors it launches its kernel or raises — there is
-no fallback.  ``LAUNCHES`` counts kernel launches per kernel, incremented
-at the launch and nowhere else.
+The kernels read K's non-zeros only: the band diagonals, and the wide
+pair (banded) or all of K (dense) in the compact forms ``CompactK`` that
+``pdhg`` builds once per operator.  ``compact_matvec``/``compact_rmatvec``
+apply those forms with the kernels' indexing, so the CPU tests check the
+layout.  Each wrapper takes its plain PyTorch version (on the dense
+``wide_w``/``Kh``) only for tensors on the CPU (the tests); for CUDA
+tensors it launches its kernel or raises — there is no fallback.
+``LAUNCHES`` counts kernel launches per kernel, incremented at the
+launch and nowhere else.
 
 The kernels are compiled at first use with ``nvcc`` from the package's own
 source into ``dervet_tpu_torch/_build/`` (a plain C interface loaded with
@@ -43,15 +49,17 @@ KERNEL_DENSE = "dense_chunk"
 KERNELS = (KERNEL_BANDED, KERNEL_DENSE)
 
 # shared memory one thread block may use on an H100 (227 KB); one block
-# holds one instance's state, so a shape whose state exceeds this is
+# holds one instance, so a shape whose shared state exceeds this is
 # declined (supports) and runs the plain path
 BLOCK_SMEM_BYTES = 232_448
-# the dense kernel streams K from L2 on every iteration; cap it well
-# inside the 50 MB L2 so K stays resident beside the blocks' traffic
-MAX_K_BYTES = 10 * 1024 * 1024
-# the banded kernel keeps the band offsets on chip; the JAX kernel's cap
+# band offsets travel in the kernel's parameters; the JAX kernel's cap
 MAX_BANDS = 32
-
+# The kernels' thread configurations, in the order config_for tries
+# them: (threads, columns a thread, rows a thread, blocks per SM the
+# launch bounds hold the registers to).  Thread t owns columns
+# t + s*threads and rows t + s*threads and keeps their state in
+# registers (mirrors FOR_EACH_CONFIG in the CUDA source).
+CONFIGS = ((128, 2, 1, 2), (256, 3, 1, 2), (512, 6, 2, 2), (768, 8, 3, 1))
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_chunk.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -79,38 +87,76 @@ def _count_launch(kernel: str) -> None:
 # Shape budget
 # ---------------------------------------------------------------------------
 
-def banded_smem_bytes(m: int, n: int, nb: int, r: int) -> int:
-    """One block's shared memory: x, 2x1-x, x_sum, c, l, u (x space);
-    y, y_sum, q (y space); the wide products; the offsets; the row->wide
-    slot map (mirrors ``banded_chunk_smem_bytes`` in the CUDA source)."""
-    return 4 * (6 * n + 3 * m + r) + 4 * (nb + m)
+def config_for(m: int, n: int) -> Optional[tuple[int, int, int, int]]:
+    """The first of ``CONFIGS`` whose threads cover n columns and m
+    rows, or None."""
+    for cfg in CONFIGS:
+        threads, cpt, rpt, _ = cfg
+        if n <= threads * cpt and m <= threads * rpt:
+            return cfg
+    return None
 
 
-def dense_smem_bytes(m: int, n: int) -> int:
-    return 4 * (6 * n + 3 * m)
+def halo(offsets, m: int, n: int) -> tuple[int, int]:
+    """Zeros around 2x1-x in shared memory so that row i reads entry
+    ``i + d`` of every band without a bounds test: (left, right)."""
+    if not offsets:
+        return 0, 0
+    return max(0, -min(offsets)), max(0, m + max(offsets) - n)
+
+
+def smem_bytes(m: int, n: int, offsets=(), part=None,
+               variant: str = VANILLA) -> int:
+    """One block's shared memory: c, l, u and 2x1-x with its halo (x
+    space); y and the band diagonals (y space); the compact forms of
+    ``part`` (the column span's rows, values and positions, ``indptr``)
+    and one product per entry plus a sink for padding; under halpern the
+    restart anchors.  The rest of the state lives in registers (mirrors
+    ``smem_words`` in the CUDA source)."""
+    hl, hr = halo(offsets, m, n)
+    words = 4 * n + hl + hr + m + len(offsets) * m
+    if part is not None:
+        nc, cmax = part.col_rows.shape
+        words += 3 * nc * cmax + part.indptr.shape[0] + part.nnz + 1
+    if variant == HALPERN:
+        words += n + m
+    return 4 * words
+
+
+def compact_bytes(part) -> int:
+    """Bytes of the compact forms in device memory (values and
+    indices)."""
+    return 4 * sum(t.numel() for t in _tensors(part))
+
+
+def _tensors(part) -> tuple:
+    return (part.row_slot, part.indptr, part.col_rows, part.col_vals,
+            part.col_pos)
+
+
+def _shape(op) -> tuple[int, int, tuple]:
+    from .pdhg import BandedOp
+    if isinstance(op, BandedOp):
+        return op.m, op.n, op.offsets
+    m, n = op.Kh.shape
+    return m, n, ()
 
 
 def supports(op, variant: str = VANILLA) -> bool:
     """Whether a chunk kernel takes ``op`` under ``variant``: a banded op
     without an ELL residual and at most ``MAX_BANDS`` bands, or a dense
-    op with K at most ``MAX_K_BYTES``; and one instance's on-chip state
-    within one block's shared memory.  All three variants are native
-    (halpern's anchors are read through L2, so they cost no shared
-    memory)."""
+    op; with a thread configuration that covers its rows and columns,
+    and one instance's shared state and K's compact forms within one
+    block's shared memory.  All three variants are native."""
     from .pdhg import BandedOp, DenseOp
-    if variant not in VARIANTS:
+    if variant not in VARIANTS or not isinstance(op, (BandedOp, DenseOp)):
         return False
-    if isinstance(op, BandedOp):
-        if op.ell is not None or len(op.offsets) > MAX_BANDS:
-            return False
-        r = 0 if op.wide_w is None else int(op.wide_w.shape[0])
-        return banded_smem_bytes(op.m, op.n, len(op.offsets), r) \
-            <= BLOCK_SMEM_BYTES
-    if isinstance(op, DenseOp):
-        m, n = op.Kh.shape
-        return m * n * 4 <= MAX_K_BYTES \
-            and dense_smem_bytes(m, n) <= BLOCK_SMEM_BYTES
-    return False
+    if isinstance(op, BandedOp) and (op.ell is not None
+                                     or len(op.offsets) > MAX_BANDS):
+        return False
+    m, n, offsets = _shape(op)
+    return config_for(m, n) is not None and smem_bytes(
+        m, n, offsets, op.compact, variant) <= BLOCK_SMEM_BYTES
 
 
 def kernel_for(op) -> str:
@@ -149,6 +195,55 @@ def banded_rmatvec(diags, offsets, wide_rows, wide_w, y, n: int):
         out = out + V[:, b, left - d:left - d + n]
     if wide_w is not None:
         out = out + y[:, wide_rows] @ wide_w
+    return out
+
+
+def compact_matvec(diags, offsets, part, x):
+    """K @ x for (B, n) x from the bands and the compact forms, indexed
+    as the kernels index them: each band through a zero halo around x;
+    each column entry's product written at its position (padding into
+    the sink at ``nnz``); each row whose ``row_slot`` k >= 0 adding the
+    sum of positions ``indptr[k]:indptr[k+1]``.  ``diags`` (nb, m) or
+    None."""
+    m = part.row_slot.shape[0]
+    hl, hr = halo(offsets, m, x.shape[1])
+    xh = torch.nn.functional.pad(x, (hl, hr))
+    out = torch.zeros(x.shape[0], m, dtype=x.dtype, device=x.device)
+    for b, d in enumerate(offsets):
+        out = out + diags[b] * xh[:, hl + d:hl + d + m]
+    nc, cmax = part.col_rows.shape
+    prod = torch.zeros(x.shape[0], part.nnz + 1, dtype=x.dtype,
+                       device=x.device)
+    xc = x[:, part.col_lo:part.col_lo + nc, None]
+    pos = part.col_pos.long().reshape(-1)
+    real = pos < part.nnz
+    prod[:, pos[real]] = (part.col_vals * xc).reshape(x.shape[0], -1)[:, real]
+    r = part.indptr.shape[0] - 1
+    seg = torch.repeat_interleave(
+        torch.arange(r, device=x.device),
+        (part.indptr[1:] - part.indptr[:-1]).long())
+    wide = torch.zeros(x.shape[0], r, dtype=x.dtype, device=x.device)
+    wide = wide.index_add(1, seg, prod[:, :part.nnz])
+    has = part.row_slot >= 0
+    out[:, has] = out[:, has] + wide[:, part.row_slot[has].long()]
+    return out
+
+
+def compact_rmatvec(diags, offsets, part, y, n: int):
+    """K.T @ y for (B, m) y, indexed as the kernels index it: column j
+    takes band b where ``0 <= j - d_b < m``, then every padded entry of
+    its column form (padding: row 0, value 0)."""
+    m = y.shape[1]
+    out = torch.zeros(y.shape[0], n, dtype=y.dtype, device=y.device)
+    j = torch.arange(n, device=y.device)
+    for b, d in enumerate(offsets):
+        i = j - d
+        ok = (i >= 0) & (i < m)
+        ic = i.clamp(0, m - 1)
+        out = out + torch.where(ok, diags[b, ic] * y[:, ic], 0.0)
+    nc = part.col_rows.shape[0]
+    wide = (y[:, part.col_rows.long()] * part.col_vals).sum(-1)
+    out[:, part.col_lo:part.col_lo + nc] += wide
     return out
 
 
@@ -237,11 +332,16 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/fused_chunk.cu`` (once per source hash); returns
-    the library path.  ``BUILD_LOG`` keeps ptxas's register and
-    shared-memory report.  A failed build raises with nvcc's output."""
+    the library path.  ``BUILD_LOG`` keeps ptxas's register, stack and
+    spill report (kept beside the library, so a process that finds the
+    library built still has it).  A failed build raises with nvcc's
+    output."""
     global BUILD_LOG
     so = library_path()
+    log = so.with_suffix(".ptxas.txt")
     if so.exists():
+        if log.exists():
+            BUILD_LOG = log.read_text()
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -251,6 +351,7 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{SOURCE.name}:\n{proc.stdout}\n{proc.stderr}")
     BUILD_LOG = proc.stdout + proc.stderr
+    log.write_text(BUILD_LOG)
     os.replace(tmp, so)
     return so
 
@@ -261,11 +362,13 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            # state (13 in, 4 out), compact forms (5), their sizes and
+            # the shape (10), the step variant, the thread configuration
+            common = [P] * 17 + [P] * 5 + [I] * 10 + [I, F] + [I] * 4
             lib.banded_chunk.argtypes = (
-                [P] * 12 + [I, P, P, I, P, P, P, P, P, P, P]
-                + [I] * 6 + [F, P])
+                common + [P, ctypes.POINTER(I), I] + [P])
             lib.banded_chunk.restype = I
-            lib.dense_chunk.argtypes = [P] * 18 + [I] * 6 + [F, P]
+            lib.dense_chunk.argtypes = common + [P]
             lib.dense_chunk.restype = I
             lib.fused_chunk_error_string.argtypes = [I]
             lib.fused_chunk_error_string.restype = ctypes.c_char_p
@@ -277,6 +380,9 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+_INT_KEYS = ("row_slot", "indptr", "col_rows", "col_pos")
+
+
 def _check(name: str, device, tensors: dict, shapes: dict) -> None:
     for key, t in tensors.items():
         if t is None:
@@ -284,8 +390,7 @@ def _check(name: str, device, tensors: dict, shapes: dict) -> None:
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"{device}")
-        want = torch.int32 if key in ("offsets", "wide_rows") \
-            else torch.float32
+        want = torch.int32 if key in _INT_KEYS else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -302,93 +407,91 @@ def _raise_on(lib, name: str, err: int) -> None:
                            f"{err} ({msg})")
 
 
-def _state_shapes(B, m, n, variant):
-    s = {"c": (B, n), "l": (B, n), "u": (B, n), "x": (B, n), "xs": (B, n),
-         "q": (B, m), "y": (B, m), "ys": (B, m), "tau": (B,), "sig": (B,)}
+def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
+            n_eq: int, iters: int, variant: str, alpha: float,
+            diags=None, offsets=()):
+    """Check the arguments of either kernel and launch it on the current
+    stream; returns (x, y, x_sum, y_sum)."""
+    x = state["x"]
+    cfg = config_for(m, n)
+    if variant not in VARIANTS or len(offsets) > MAX_BANDS or cfg is None \
+            or smem_bytes(m, n, offsets, part, variant) > BLOCK_SMEM_BYTES:
+        raise ValueError(f"{kernel} does not take m={m} n={n} "
+                         f"nb={len(offsets)} variant={variant!r}")
+    r = part.indptr.shape[0] - 1
+    nc, cmax = part.col_rows.shape
+    shapes = {"c": (B, n), "l": (B, n), "u": (B, n), "x": (B, n),
+              "xs": (B, n), "q": (B, m), "y": (B, m), "ys": (B, m),
+              "tau": (B,), "sig": (B,), "diags": (len(offsets), m),
+              "row_slot": (m,), "indptr": (r + 1,), "col_rows": (nc, cmax),
+              "col_vals": (nc, cmax), "col_pos": (nc, cmax)}
     if variant == HALPERN:
-        s.update({"k0": (B,), "ax": (B, n), "ay": (B, m)})
-    return s
-
-
-def banded_chunk(c, q, l, u, tau, sig, x, y, xs, ys, diags, offsets,
-                 wide_rows, wide_w, n_eq: int, iters: int,
-                 variant: str = VANILLA, alpha: float = 1.0,
-                 k0=None, ax=None, ay=None):
-    """``iters`` iterations of the banded chunk.  ``diags`` (nb, m) f32,
-    ``offsets`` (nb,) int32, ``wide_rows`` (r,) int32 and ``wide_w``
-    (r, n) f32 or both None; per-instance (B, ·) f32 state; ``tau``,
-    ``sig``, ``k0`` (B,).  CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
-    if x.device.type == "cpu":
-        return banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, diags,
-                                  offsets, wide_rows, wide_w, n_eq, iters,
-                                  variant, alpha, k0, ax, ay)
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_chunk: unsupported device {x.device}")
-    B, n = x.shape
-    nb, m = diags.shape
-    r = 0 if wide_w is None else int(wide_w.shape[0])
-    if variant not in VARIANTS or nb > MAX_BANDS \
-            or banded_smem_bytes(m, n, nb, r) > BLOCK_SMEM_BYTES:
-        raise ValueError(f"banded_chunk does not take m={m} n={n} nb={nb} "
-                         f"r={r} variant={variant!r}")
-    shapes = _state_shapes(B, m, n, variant)
-    shapes.update({"offsets": (nb,), "wide_rows": (r,), "wide_w": (r, n)})
-    _check("banded_chunk", x.device,
-           dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig, x=x, y=y, xs=xs,
-                ys=ys, diags=diags, offsets=offsets, wide_rows=wide_rows,
-                wide_w=wide_w, k0=k0, ax=ax, ay=ay), shapes)
+        shapes.update({"k0": (B,), "ax": (B, n), "ay": (B, m)})
+    else:
+        state = {**state, "k0": None, "ax": None, "ay": None}
+    forms = dict(zip(("row_slot", "indptr", "col_rows", "col_vals",
+                      "col_pos"), _tensors(part)))
+    _check(kernel, x.device, {**state, "diags": diags, **forms}, shapes)
     lib = _load()
-    xo, xso = torch.empty_like(x), torch.empty_like(xs)
-    yo, yso = torch.empty_like(y), torch.empty_like(ys)
+    out = [torch.empty_like(x), torch.empty_like(state["y"]),
+           torch.empty_like(x), torch.empty_like(state["y"])]
+    args = [_ptr(state[k]) for k in ("c", "q", "l", "u", "tau", "sig", "x",
+                                     "y", "xs", "ys", "k0", "ax", "ay")]
+    args += [_ptr(t) for t in out] + [_ptr(t) for t in forms.values()]
+    args += [r, part.nnz, part.col_lo, nc, cmax, B, m, n, int(n_eq),
+             int(iters), _VARIANT_CODE[variant], float(alpha), *cfg]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.banded_chunk(
-            *(_ptr(t) for t in (c, q, l, u, tau, sig, x, y, xs, ys, diags,
-                                offsets)), nb,
-            _ptr(wide_rows), _ptr(wide_w), r,
-            *(_ptr(t) for t in (k0, ax, ay, xo, yo, xso, yso)),
-            B, m, n, int(n_eq), int(iters), _VARIANT_CODE[variant],
-            float(alpha), stream)
-    _raise_on(lib, "banded_chunk", err)
-    _count_launch(KERNEL_BANDED)
-    return xo, yo, xso, yso
+        if kernel == KERNEL_BANDED:
+            offs = (ctypes.c_int * max(1, len(offsets)))(*offsets)
+            err = lib.banded_chunk(*args, _ptr(diags), offs, len(offsets),
+                                   stream)
+        else:
+            err = lib.dense_chunk(*args, stream)
+    _raise_on(lib, kernel, err)
+    _count_launch(kernel)
+    return tuple(out)
 
 
-def dense_chunk(c, q, l, u, tau, sig, x, y, xs, ys, K, n_eq: int,
+def banded_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq: int,
+                 iters: int, variant: str = VANILLA, alpha: float = 1.0,
+                 k0=None, ax=None, ay=None):
+    """``iters`` iterations of the banded chunk for the ``BandedOp``
+    ``op``: per-instance (B, ·) f32 state; ``tau``, ``sig``, ``k0`` (B,).
+    CPU tensors run the plain version (with the dense wide pair); CUDA
+    tensors launch the kernel, which reads the band diagonals and the
+    wide pair's compact forms (``op.compact``)."""
+    if x.device.type == "cpu":
+        return banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys,
+                                  op.diags, op.offsets_t, op.wide_rows,
+                                  op.wide_w, n_eq, iters, variant, alpha,
+                                  k0, ax, ay)
+    if x.device.type != "cuda":
+        raise ValueError(f"banded_chunk: unsupported device {x.device}")
+    return _launch(KERNEL_BANDED, dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig,
+                                       x=x, y=y, xs=xs, ys=ys, k0=k0, ax=ax,
+                                       ay=ay),
+                   op.compact, x.shape[0], op.m, op.n, n_eq, iters, variant,
+                   alpha, op.diags, op.offsets)
+
+
+def dense_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq: int,
                 iters: int, variant: str = VANILLA, alpha: float = 1.0,
                 k0=None, ax=None, ay=None):
-    """``iters`` iterations of the dense chunk (``K`` (m, n) f32).  CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    """``iters`` iterations of the dense chunk for the ``DenseOp`` ``op``.
+    CPU tensors run the plain version (with the dense ``Kh``); CUDA
+    tensors launch the kernel, which reads K's compact forms
+    (``op.compact``)."""
     if x.device.type == "cpu":
-        return dense_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, K,
+        return dense_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, op.Kh,
                                  n_eq, iters, variant, alpha, k0, ax, ay)
     if x.device.type != "cuda":
         raise ValueError(f"dense_chunk: unsupported device {x.device}")
-    B, n = x.shape
-    m = K.shape[0]
-    if variant not in VARIANTS or m * n * 4 > MAX_K_BYTES \
-            or dense_smem_bytes(m, n) > BLOCK_SMEM_BYTES:
-        raise ValueError(f"dense_chunk does not take m={m} n={n} "
-                         f"variant={variant!r}")
-    shapes = _state_shapes(B, m, n, variant)
-    shapes["K"] = (m, n)
-    _check("dense_chunk", x.device,
-           dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig, x=x, y=y, xs=xs,
-                ys=ys, K=K, k0=k0, ax=ax, ay=ay), shapes)
-    lib = _load()
-    xo, xso = torch.empty_like(x), torch.empty_like(xs)
-    yo, yso = torch.empty_like(y), torch.empty_like(ys)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dense_chunk(
-            *(_ptr(t) for t in (c, q, l, u, tau, sig, x, y, xs, ys, K, k0,
-                                ax, ay, xo, yo, xso, yso)),
-            B, m, n, int(n_eq), int(iters), _VARIANT_CODE[variant],
-            float(alpha), stream)
-    _raise_on(lib, "dense_chunk", err)
-    _count_launch(KERNEL_DENSE)
-    return xo, yo, xso, yso
+    m, n = op.Kh.shape
+    return _launch(KERNEL_DENSE, dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig,
+                                      x=x, y=y, xs=xs, ys=ys, k0=k0, ax=ax,
+                                      ay=ay),
+                   op.compact, x.shape[0], m, n, n_eq, iters, variant, alpha)
 
 
 def batched_chunk(op, c, q, l, u, omega, eta, x, y, xs, ys, n_eq: int,
@@ -406,44 +509,53 @@ def batched_chunk(op, c, q, l, u, omega, eta, x, y, xs, ys, n_eq: int,
     k0 = k.to(torch.float32).contiguous() if variant == HALPERN else None
     if variant != HALPERN:
         ax = ay = None
-    if isinstance(op, BandedOp):
-        return banded_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op.diags,
-                            op.offsets_t, op.wide_rows, op.wide_w, n_eq,
-                            iters, variant, alpha, k0, ax, ay)
-    return dense_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op.Kh, n_eq,
-                       iters, variant, alpha, k0, ax, ay)
+    run = banded_chunk if isinstance(op, BandedOp) else dense_chunk
+    return run(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq, iters, variant,
+               alpha, k0, ax, ay)
 
 
-def chunk_cost(kernel: str, B: int, m: int, n: int, iters: int,
-               nb: int = 0, r: int = 0, variant: str = VANILLA,
-               nnz: Optional[int] = None) -> tuple[int, int]:
+def matrix_work(op, needed: bool = False) -> tuple[int, int]:
+    """(bytes, multiply-adds) of K for one launch's bound: the bytes of K
+    read once, and the multiply-adds of one K x plus one K^T y.  With
+    ``needed``, as the function needs them: K's non-zeros, each read
+    once (4 bytes) and used once in each product.  Otherwise as the
+    kernel stores and multiplies K: the band diagonals, padded to m
+    entries each and used once in each product; the compact forms'
+    values and indices; and every padded entry of each column that has
+    one, once in K^T y and once in K x.  Reads tensors back: not for the
+    solve path."""
+    from .pdhg import BandedOp
+    part = op.compact
+    diags = op.diags if isinstance(op, BandedOp) else None
+    if needed:
+        nnz = part.nnz
+        if diags is not None:
+            nnz += int((diags != 0).sum())
+        return 4 * nnz, 2 * nnz
+    band = 0 if diags is None else diags.numel()
+    cmax = part.col_rows.shape[1]
+    cols_used = int((part.col_vals[:, 0] != 0).sum()) if cmax else 0
+    return (4 * band + compact_bytes(part),
+            2 * band + 2 * cols_used * cmax)
+
+
+def chunk_cost(B: int, m: int, n: int, iters: int, k_bytes: int,
+               k_macs: int, variant: str = VANILLA) -> tuple[int, int]:
     """(bytes, fp32 operations) one launch needs at least: every input
-    read once and every output written once, and the iteration's
-    arithmetic.  Without ``nnz`` the matrix is counted as the kernel
-    stores and multiplies it (band diagonals and the dense W, or the
-    dense K, zeros and all).  With ``nnz``, the non-zeros of the scaled
-    K, it is counted as the function needs it: each non-zero read once
-    and used in one multiply-add of K x and one of K^T y.  The
-    elementwise count per iteration is 9 operations per x entry and 6
-    per y entry (projection, step, reflected point, running sum) plus 5
-    each for a reflected and 9 each for a halpern relaxation."""
+    read once and every output written once, K's ``k_bytes``, and the
+    iteration's arithmetic with ``k_macs`` multiply-adds of K per
+    iteration (:func:`matrix_work`).  The elementwise count per
+    iteration is 9 operations per x entry and 6 per y entry (projection,
+    step, reflected point, running sum) plus 5 each for a reflected and
+    9 each for a halpern relaxation."""
     halp = variant == HALPERN
     per_inst = 4 * (5 * n + 3 * m + 2) + 4 * (2 * n + 2 * m)
     if halp:
         per_inst += 4 * (n + m + 1)
-    if nnz is not None:
-        shared = 4 * nnz
-        macs = 2 * nnz
-    elif kernel == KERNEL_BANDED:
-        shared = 4 * (nb * m + nb + r * n + r)
-        macs = 2 * nb * m + 2 * r * n
-    else:
-        shared = 4 * m * n
-        macs = 2 * m * n
     elem = 9 * n + 6 * m
     if variant == REFLECTED:
         elem += 5 * (n + m)
     elif halp:
         elem += 9 * (n + m)
-    ops = B * iters * (2 * macs + elem)
-    return B * per_inst + shared, ops
+    ops = B * iters * (2 * k_macs + elem)
+    return B * per_inst + k_bytes, ops

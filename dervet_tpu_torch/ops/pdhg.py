@@ -178,8 +178,81 @@ WIDE_MAX_ROWS = 384
 WIDE_MAX_BYTES = 8 * 1024 * 1024
 
 
-class DenseOp(NamedTuple):
-    Kh: torch.Tensor          # (m, n)
+class CompactK(NamedTuple):
+    """Some rows of K (``r`` compact rows, ``nnz`` non-zeros) in the
+    compact forms the chunk kernels read; ``fused_chunk.compact_matvec``/
+    ``compact_rmatvec`` apply them with the kernels' indexing.  The
+    banded op's wide rows, or every row of the dense op.
+
+    By column, for the ``nc`` columns from ``col_lo`` on (the span of the
+    columns that have entries): each column's entries padded to ``cmax``,
+    as K's row, the value, and the entry's position in row-major (CSR)
+    order; padding sits at the tail as (row 0, value 0, position nnz).
+    By row: ``indptr`` over those positions, with ``row_slot`` mapping
+    K's rows to compact rows.  K^T y reads a column's entries; K x writes
+    each entry's product at its position and sums a row's positions."""
+    row_slot: torch.Tensor    # (m,) int32: compact row k of K's row i, or -1
+    indptr: torch.Tensor      # (r + 1,) int32: row k owns positions
+    #                           [indptr[k], indptr[k + 1])
+    col_rows: torch.Tensor    # (nc, cmax) int32
+    col_vals: torch.Tensor    # (nc, cmax)
+    col_pos: torch.Tensor     # (nc, cmax) int32
+    col_lo: int
+    nnz: int
+
+
+def compact_k(rows, M, m: int, device, dtype=torch.float32) -> CompactK:
+    """The compact forms of the (r, n) matrix ``M`` (numpy or scipy) whose
+    row k is row ``rows[k]`` of the (m, n) K.  Values are cast to
+    ``dtype`` first, so they equal the dense tensor's entries exactly."""
+    rows = np.asarray(rows, np.int64)
+    S = sp.csr_matrix(M)
+    S.data = S.data.astype(torch.empty(0, dtype=dtype).numpy().dtype)
+    S.eliminate_zeros()
+    S.sort_indices()
+    nnz = S.nnz
+    k_of = np.repeat(np.arange(S.shape[0]), np.diff(S.indptr))
+    order = np.lexsort((k_of, S.indices))    # CSR positions column by column
+    cj = S.indices[order]
+    counts = np.bincount(S.indices, minlength=S.shape[1])
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    slot = np.arange(nnz) - starts[cj]
+    lo = int(cj[0]) if nnz else 0
+    nc = int(cj[-1]) + 1 - lo if nnz else 0
+    cmax = int(counts.max()) if nnz else 0
+    col_rows = np.zeros((nc, cmax), np.int32)
+    col_vals = np.zeros((nc, cmax), S.data.dtype)
+    col_pos = np.full((nc, cmax), nnz, np.int32)
+    col_rows[cj - lo, slot] = rows[k_of[order]]
+    col_vals[cj - lo, slot] = S.data[order]
+    col_pos[cj - lo, slot] = order
+    row_slot = np.full(m, -1, np.int32)
+    row_slot[rows] = np.arange(S.shape[0])
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=device)
+    return CompactK(
+        row_slot=i32(row_slot), indptr=i32(S.indptr), col_rows=i32(col_rows),
+        col_vals=torch.tensor(col_vals, dtype=dtype, device=device),
+        col_pos=i32(col_pos), col_lo=lo, nnz=nnz)
+
+
+class DenseOp:
+    """Dense K (``Kh``, (m, n)) and, for the dense chunk kernel, the same
+    K in compact form (``compact``: every row a compact row)."""
+
+    def __init__(self, Kh, compact: Optional[CompactK] = None):
+        self.Kh = Kh
+        self._compact = compact
+
+    @property
+    def compact(self) -> CompactK:
+        # an op built by hand (the tests) builds its forms at first use
+        if self._compact is None:
+            m = self.Kh.shape[0]
+            self._compact = compact_k(np.arange(m), self.Kh.cpu().numpy(),
+                                      m, self.Kh.device, self.Kh.dtype)
+        return self._compact
 
 
 class EllOp(NamedTuple):
@@ -198,10 +271,12 @@ class BandedOp:
     package keeps P as an (m, r) 0/1 selector; here it travels as the
     row index of each of its columns (``wide_rows``, (r,) int32) — the
     same function, since each column of P holds one 1.  Residual entries
-    that fit neither ride an ELL op."""
+    that fit neither ride an ELL op.  ``compact`` carries the wide pair
+    in the compact forms the banded chunk kernel reads (no compact rows
+    without a wide pair)."""
 
     def __init__(self, diags, offsets, m, n, ell=None, wide_rows=None,
-                 wide_w=None):
+                 wide_w=None, compact: Optional[CompactK] = None):
         self.diags = diags            # (nb, m)
         self.offsets = tuple(int(d) for d in offsets)
         self.offsets_t = torch.tensor(self.offsets, dtype=torch.int32,
@@ -211,6 +286,24 @@ class BandedOp:
         self.ell = ell
         self.wide_rows = wide_rows    # (r,) int32 or None
         self.wide_w = wide_w          # (r, n) or None
+        self._compact = compact
+
+    @property
+    def compact(self) -> CompactK:
+        # an op built by hand (the tests) builds its forms at first use
+        if self._compact is None:
+            host = (None, None) if self.wide_w is None else (
+                self.wide_rows.cpu().numpy(), self.wide_w.cpu().numpy())
+            self._compact = _wide_compact(*host, self.m, self.n,
+                                          self.diags.device, self.diags.dtype)
+        return self._compact
+
+
+def _wide_compact(rows, W, m: int, n: int, device, dtype) -> CompactK:
+    """The compact forms of a banded op's wide pair (none without one)."""
+    if W is None:
+        rows, W = np.zeros(0, np.int64), np.zeros((0, n))
+    return compact_k(rows, W, m, device, dtype)
 
 
 MatOp = Union[DenseOp, EllOp, BandedOp]
@@ -247,7 +340,9 @@ def _build_op(kind: str, leaves: dict, device, dtype=torch.float32) -> MatOp:
         return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
     if kind == "dense":
-        return DenseOp(Kh=f(leaves["Kh"]))
+        Kh = np.asarray(leaves["Kh"])
+        return DenseOp(Kh=f(Kh), compact=compact_k(
+            np.arange(Kh.shape[0]), Kh, Kh.shape[0], device, dtype))
     if kind == "ell":
         return EllOp(data=f(leaves["data"]), cols=i(leaves["cols"]),
                      data_t=f(leaves["data_t"]), cols_t=i(leaves["cols_t"]),
@@ -265,11 +360,12 @@ def _build_op(kind: str, leaves: dict, device, dtype=torch.float32) -> MatOp:
         rows = np.argmax(P, axis=0)
     n = int(leaves["n"])
     ell = leaves.get("ell")
+    compact = _wide_compact(rows, wide_w, m, n, device, dtype)
     return BandedOp(
         diags=f(diags), offsets=leaves["offsets"], m=m, n=n,
         ell=_build_op("ell", ell, device, dtype) if ell is not None else None,
         wide_rows=None if wide_w is None else i(rows, torch.int32),
-        wide_w=None if wide_w is None else f(wide_w))
+        wide_w=None if wide_w is None else f(wide_w), compact=compact)
 
 
 def op_from_numpy(kind: str, leaves: dict, device=None):

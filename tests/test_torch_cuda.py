@@ -11,7 +11,8 @@ CPU test files share (``test_torch_pdhg``, ``test_torch_fused_chunk``).
 
 Checks: one chunk of each kernel and step variant from a mid-solve state
 (B = 129, not a multiple of any block) agrees with the plain version per
-instance to 1e-5 of the vector's scale, and launches exactly once; a full
+instance to 1e-5 of the vector's scale, and launches exactly once, on the
+small LPs and on the ICE + CHP monthly window; a full
 solve on the card gives the CPU solve's statuses, objectives within the
 solver's ``eps_rel`` and iteration counts within one check window.
 """
@@ -20,6 +21,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from dervet_tpu_torch import benchlib
 from dervet_tpu_torch.ops import fused_chunk
 from dervet_tpu_torch.ops import lp as port_lp
 from dervet_tpu_torch.ops import pdhg
@@ -78,6 +80,9 @@ LPS = {
     "banded": lambda B: banded_lp(B),
     "banded_wide": lambda B: banded_lp(B, daily_rows=True),
 }
+# the kernels are also held at the largest window they take: the ICE +
+# CHP monthly window (2233 x 5952, seven bands, 768-thread blocks)
+KERNEL_LPS = {**LPS, "ice_chp": lambda B: benchlib.multi_der_window_lp()}
 
 
 def price_batch(lp, B, seed=1):
@@ -160,10 +165,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", sorted(LPS))
+@pytest.mark.parametrize("kind", sorted(KERNEL_LPS))
 @pytest.mark.parametrize("variant", sorted(ALPHA))
 def test_kernel_matches_plain(cuda, kind, variant):
-    lp = LPS[kind](port_lp.LPBuilder)
+    lp = KERNEL_LPS[kind](port_lp.LPBuilder)
     solver = pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(), device=cuda)
     B = 129
     C = torch.tensor(price_batch(lp, B), dtype=torch.float32, device=cuda)
@@ -221,14 +226,14 @@ def plain_chunk_as(dtype, op, n_eq, t, tau, sig, iters, variant, alpha):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", sorted(LPS))
+@pytest.mark.parametrize("kind", sorted(KERNEL_LPS))
 @pytest.mark.parametrize("variant", sorted(ALPHA))
 def test_kernel_from_random_state_differs_by_rounding(cuda, kind, variant):
     """From an arbitrary state the chunk amplifies float32 rounding (most
     on the all-equality banded op); the kernel sits no farther from the
     float64 run of the plain version than ROUNDING_FACTOR times the
     float32 plain runs do (``rounding_spread``)."""
-    lp = LPS[kind](port_lp.LPBuilder)
+    lp = KERNEL_LPS[kind](port_lp.LPBuilder)
     solver = pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(), device=cuda)
     B = 129
     C = torch.tensor(price_batch(lp, B), dtype=torch.float32, device=cuda)
@@ -284,5 +289,5 @@ def test_wrapper_rejects_wrong_dtype(cuda):
     g = torch.zeros(2, lp.m, device=cuda)
     s = torch.ones(2, device=cuda)
     with pytest.raises(TypeError):
-        fused_chunk.dense_chunk(f, g, f, f, s, s, x, g, f, g, solver.op.Kh,
+        fused_chunk.dense_chunk(f, g, f, f, s, s, x, g, f, g, solver.op,
                                 lp.n_eq, 4)

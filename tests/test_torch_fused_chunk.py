@@ -12,10 +12,12 @@ max |port - pallas| <= 1e-6 + 1e-5 max |pallas| (float32 sums in another
 order).
 
 Also: the row-index wide pair is ``P @ W``; ``supports`` declines what the
-kernels do not take (an ELL residual, a footprint over one block's shared
-memory, a dense K over budget) and takes the multi-DER window; and
-device resolution refuses to fall back to the CPU.  The CUDA kernels
-themselves are held against these plain versions in test_torch_cuda.py.
+kernels do not take (an ELL residual, a shape no thread configuration
+covers, a footprint over one block's shared memory, compact forms that
+do not fit beside it) and takes the multi-DER window; the cost model
+counts K as the kernels store it; and device resolution refuses to fall
+back to the CPU.  The CUDA kernels themselves are held against these
+plain versions in test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -201,19 +203,29 @@ def test_supports_declines_ell_residual_and_solves_plain():
 
 
 def test_supports_budget():
-    # one block's state over 227 KB: declined
+    # a shape no thread configuration covers: declined
     big = pdhg.BandedOp(diags=torch.zeros(4, 3000), offsets=(0, 1, 3000,
                                                               6000),
                         m=3000, n=12000)
-    assert fused_chunk.banded_smem_bytes(3000, 12000, 4, 0) \
-        > fused_chunk.BLOCK_SMEM_BYTES
+    assert fused_chunk.config_for(3000, 12000) is None
     assert not fused_chunk.supports(big, "vanilla")
+    # one block's shared state over 227 KB: declined
+    offs = tuple(range(32))
+    wide = pdhg.BandedOp(diags=torch.zeros(32, 2304), offsets=offs,
+                         m=2304, n=6144)
+    assert fused_chunk.config_for(2304, 6144) == (768, 8, 3, 1)
+    assert fused_chunk.smem_bytes(2304, 6144, offs) \
+        > fused_chunk.BLOCK_SMEM_BYTES
+    assert not fused_chunk.supports(wide, "vanilla")
     # too many bands
     many = pdhg.BandedOp(diags=torch.zeros(33, 100), offsets=range(33),
                          m=100, n=300)
     assert not fused_chunk.supports(many, "vanilla")
-    # dense K over the L2-resident budget
-    dense = pdhg.DenseOp(Kh=torch.zeros(1024, 2600))
+    # a dense K whose compact forms do not fit one block's shared memory
+    dense = pdhg.DenseOp(Kh=torch.ones(200, 600))
+    assert fused_chunk.config_for(200, 600) == (256, 3, 1, 2)
+    assert fused_chunk.smem_bytes(200, 600, (), dense.compact) \
+        > fused_chunk.BLOCK_SMEM_BYTES
     assert not fused_chunk.supports(dense, "vanilla")
     assert fused_chunk.supports(pdhg.DenseOp(Kh=torch.zeros(176, 672)),
                                 "halpern")
@@ -223,8 +235,10 @@ def test_supports_budget():
 
 def test_multi_der_window_fits_one_block():
     """The ICE+CHP monthly window (2233 x 5952, seven bands) needed the TPU
-    kernel's half-size instance block; here one instance's state is
-    ~178 KB, inside one block's shared memory."""
+    kernel's half-size instance block; here 768 threads hold its state in
+    registers, 8 columns and 3 rows a thread, and the shared part (c, l,
+    u, 2x1-x with a 744-entry halo, y, the seven diagonals) is ~170 KB,
+    inside one block's shared memory."""
     from dervet_tpu import benchlib as jax_benchlib
     from dervet_tpu.scenario.scenario import MicrogridScenario
     scen = MicrogridScenario(jax_benchlib.synthetic_case(multi_der=True))
@@ -237,9 +251,11 @@ def test_multi_der_window_fits_one_block():
     op = pdhg.make_op(Kh, device="cpu")
     assert isinstance(op, pdhg.BandedOp) and len(op.offsets) == 7
     assert fused_chunk.supports(op, "halpern")
-    r = 0 if op.wide_w is None else op.wide_w.shape[0]
-    assert 150_000 < fused_chunk.banded_smem_bytes(
-        op.m, op.n, len(op.offsets), r) <= fused_chunk.BLOCK_SMEM_BYTES
+    assert fused_chunk.config_for(op.m, op.n) == (768, 8, 3, 1)
+    assert fused_chunk.halo(op.offsets, op.m, op.n) == (1, 744)
+    assert 165_000 < fused_chunk.smem_bytes(
+        op.m, op.n, op.offsets, op.compact, "vanilla") \
+        <= fused_chunk.BLOCK_SMEM_BYTES
     jop = jpdhg.make_op(Kh, put=jpdhg._hcast)
     assert pallas_chunk._banded_blk(jop, "vanilla") == 64
 
@@ -260,21 +276,34 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_cost_model_counts_wide_pair_zeros():
-    """The bound counts the dense W products as the kernel computes them:
-    at the monthly daily-cycle shape the wide pair is ~30x the bands."""
-    nbytes, ops = fused_chunk.chunk_cost(
-        fused_chunk.KERNEL_BANDED, 1, 776, 2976, 1, nb=4, r=31)
-    band_macs, wide_macs = 2 * 4 * 776, 2 * 31 * 2976
-    assert 25 < wide_macs / band_macs < 35
-    assert ops > 2 * (band_macs + wide_macs)
-    assert nbytes > 4 * (7 * 2976 + 5 * 776)
-    # counted as the function needs it (the non-zeros of K), the same
-    # launch needs a small fraction of the operations the kernel does
-    nnz = 4 * 776 + 743
+    """The bound counts K as the kernels store and multiply it: the
+    padded band diagonals and the compact wide pair, no longer the dense
+    W.  At the monthly daily-cycle shape the dense W's products were ~30x
+    the bands'; the compact pair is a tenth of them, and the launch as
+    computed is within a few percent of the work the function needs."""
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.scenario.scenario import MicrogridScenario
+    scen = MicrogridScenario(benchlib.synthetic_case(daily_cycle_limit=1))
+    scen.prepare_dispatch("cpu")
+    lp = scen.build_window_lp(scen.windows[0], scen._annuity_scalar,
+                              scen._requirements)
+    op = pdhg.CompiledLPSolver(lp, device="cpu").op
+    assert (op.m, op.n, len(op.offsets)) == (776, 2976, 4)
+    r = op.wide_w.shape[0]
+    band_macs, dense_w_macs = 2 * 4 * 776, 2 * r * 2976
+    assert 25 < dense_w_macs / band_macs < 35
+    need_bytes, need_macs = fused_chunk.matrix_work(op, needed=True)
+    stored_bytes, stored_macs = fused_chunk.matrix_work(op)
+    assert need_macs == 2 * (int((op.diags != 0).sum())
+                             + int((op.wide_w != 0).sum()))
+    assert stored_macs - 2 * 4 * 776 < dense_w_macs / 10
+    assert need_macs <= stored_macs < 1.05 * need_macs
+    assert need_bytes <= stored_bytes < 4 * need_bytes
     nb_need, ops_need = fused_chunk.chunk_cost(
-        fused_chunk.KERNEL_BANDED, 896, 776, 2976, 32, nb=4, r=31,
-        variant="reflected", nnz=nnz)
+        896, 776, 2976, 32, need_bytes, need_macs, "reflected")
     nb_all, ops_all = fused_chunk.chunk_cost(
-        fused_chunk.KERNEL_BANDED, 896, 776, 2976, 32, nb=4, r=31,
-        variant="reflected")
-    assert ops_all > 5 * ops_need and nb_all > nb_need
+        896, 776, 2976, 32, stored_bytes, stored_macs, "reflected")
+    assert ops_need <= ops_all < 1.02 * ops_need
+    assert nb_need <= nb_all < 1.01 * nb_need
+    # the instance state dominates the bytes: in and out once
+    assert nb_need > 896 * 4 * (7 * 2976 + 5 * 776)
