@@ -6,6 +6,7 @@ CUDA toolkit:
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --profile   # + the device's busy share in phase 3
+    python3 chip_smoke.py --time DIR  # only time the kernels of DIR's copy
 
 Phases:
   1. build   — compile ``dervet_tpu_torch/ops/csrc/fused_chunk.cu`` (nvcc,
@@ -13,19 +14,21 @@ Phases:
                and spills from ptxas; fails on a spill;
   2. kernels — each chunk kernel against its plain PyTorch version after
                one chunk of 32 iterations, at every shape phases 3 and 4
-               run (at their batch, and at B = 1 and 129) and at three
+               run (at their batch, and at B = 1 and 129) and at five
                more (all-equality rows without the wide-row pair; mixed
                equality/inequality rows on the dense op; the ICE + CHP
-               monthly window, 2233 x 5952 with seven bands), three step
+               monthly window, 2233 x 5952 with seven bands; and two
+               shapes of the shared-state configuration, the DA + FR
+               monthly window, 3752 x 4464 with ten bands, and a dense
+               block with every entry of K non-zero), three step
                variants each: from the solver's mid-solve state, and from
                an arbitrary state against the float64 plain run; then
-               each kernel's device time a launch at its main shape
-               (torch.profiler; CUDA events where the profiler records
-               none) and its plain version's (CUDA events, warm) beside
-               the least time the card could take for the work the
-               function needs (K's non-zeros), and for the work as the
-               kernel stores and computes it (padded band diagonals,
-               compact forms);
+               each shape's kernel device time a launch (torch.profiler;
+               fails if it records none) and its plain version's (CUDA
+               events, warm) beside the least time the card could take
+               for the work the function needs (K's non-zeros), and for
+               the work as the kernel stores and computes it (padded
+               band diagonals, compact forms);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -40,6 +43,12 @@ It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
 ``kernels`` JSON line and the device JSON line; the card's name and power
 limit come just before them.
+
+``--time DIR`` runs none of the phases: it imports the package under DIR
+(an unpacked older commit, say) and prints one JSON line with the card,
+and each kernel's device time and call time a launch at its main shape
+(32 reflected iterations: banded 776 x 2976 at B = 896, dense 169 x 672
+at B = 416), so that two commits are compared in one call, in turns.
 """
 from __future__ import annotations
 
@@ -70,6 +79,8 @@ ROUNDING_FACTOR = 4.0
 ROUNDING_FLOOR = 1e-6
 ROUNDING_RUNS = 4
 CHUNK_ITERS = 32
+# each step variant's relaxation, as the solver runs it
+ALPHA = {"vanilla": 1.0, "reflected": 1.8, "halpern": 2.0}
 # iterations the kernel checks start from (see chunk_inputs)
 WARM_ITERS = 256
 MAIN_CASES = 128
@@ -263,6 +274,18 @@ def kernel_chunk(solver, inputs, variant, alpha):
     return out
 
 
+def chunk_launcher(solver, inputs, variant):
+    """A no-argument call of one kernel chunk on ``inputs`` (timing)."""
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    t, omega, x, y, xs, ys, k, ax, ay = inputs
+
+    def launch():
+        fc.batched_chunk(solver.op, t.c_s, t.q_s, t.l_s, t.u_s, omega,
+                         solver.eta, x, y, xs, ys, solver.lp.n_eq,
+                         CHUNK_ITERS, variant, ALPHA[variant], k, ax, ay)
+    return launch
+
+
 def rel_gap(a, ref) -> float:
     """max |a - ref| / (1 + max |ref|), in float64."""
     a, ref = a.double(), ref.double()
@@ -329,15 +352,16 @@ def kernel_phase():
     from dervet_tpu_torch.ops.pdhg import (BandedOp, CompiledLPSolver,
                                            PDHGOptions)
     from dervet_tpu_torch import benchlib
-    alpha_of = {fc.VANILLA: 1.0, fc.REFLECTED: 1.8, fc.HALPERN: 2.0}
     monthly, weekly = window_lps("month", 1), window_lps(168, 0)
     # (name, lp, the path's batch, timed for the kernels line): the groups
     # the main path runs (31-, 30- and 28-day months x MAIN_CASES) and the
     # weekly run's (52 weeks and the 24-hour remainder x WEEKLY_CASES),
-    # then three shapes neither runs, for coverage: the monthly op with
+    # then five shapes neither runs, for coverage: the monthly op with
     # all-equality rows (no wide pair), the weekly op with mixed
-    # equality/inequality rows, and the ICE + CHP monthly window (the
-    # largest thread configuration)
+    # equality/inequality rows, the ICE + CHP monthly window (the
+    # largest register configuration), and two the shared-state
+    # configuration takes: the DA + FR monthly window (ten bands) and a
+    # dense block (every entry of K non-zero)
     shapes = [
         ("banded 31d", monthly[744], 7 * MAIN_CASES, True),
         ("banded 30d", monthly[720], 4 * MAIN_CASES, False),
@@ -349,6 +373,8 @@ def kernel_phase():
         ("dense mixed", window_lps(168, 1)[168], 52 * WEEKLY_CASES, False),
         ("banded ICE+CHP", benchlib.multi_der_window_lp(), MAIN_CASES,
          False),
+        ("banded DA+FR", benchlib.fr_window_lp(), MAIN_CASES, False),
+        ("dense block", benchlib.dense_block_lp(), MAIN_CASES, False),
     ]
     records, checked, failures = {}, {k: set() for k in fc.KERNELS}, []
     for name, lp, b_main, timed in shapes:
@@ -357,17 +383,21 @@ def kernel_phase():
         kname = fc.kernel_for(op)
         banded = isinstance(op, BandedOp)
         part = op.compact
+        offsets = op.offsets if banded else ()
         nnz = fc.matrix_work(op, needed=True)[1] // 2
+        per_col = torch.diff(part.col_ptr)
         log(f"[kernels] {name}: m={lp.m} n={lp.n} n_eq={lp.n_eq} "
-            f"{kname} nnz(K)={nnz} config={fc.config_for(lp.m, lp.n)} "
+            f"{kname} nnz(K)={nnz} config="
+            f"{fc.config_for(lp.m, lp.n, offsets, part, fc.REFLECTED)} "
             f"compact rows={part.indptr.shape[0] - 1} "
-            f"entries={part.nnz} cmax={part.col_rows.shape[1]}"
+            f"entries={part.nnz} most a column="
+            f"{int(per_col.max()) if per_col.numel() else 0}"
             + (f" nb={len(op.offsets)}" if banded else ""))
         check(fc.supports(op, fc.REFLECTED), f"{name}: kernel declines")
         checked[kname].add((lp.m, lp.n))
         worst_abs, worst_rand = 0.0, (0.0, 0.0)
         for variant in fc.VARIANTS:
-            alpha = alpha_of[variant]
+            alpha = ALPHA[variant]
             # from the solver's own mid-solve state
             for B in sorted({1, 129, b_main}):
                 inputs = chunk_inputs(solver, B, seed=B)
@@ -407,26 +437,21 @@ def kernel_phase():
         # timing at the path's batch, the product's default variant
         variant = fc.REFLECTED
         inputs = chunk_inputs(solver, b_main, seed=7)
-        def launch():
-            fc.batched_chunk(op, inputs[0].c_s, inputs[0].q_s,
-                             inputs[0].l_s, inputs[0].u_s, inputs[1],
-                             solver.eta, *inputs[2:6], lp.n_eq, CHUNK_ITERS,
-                             variant, 1.8, *inputs[6:])
-
+        launch = chunk_launcher(solver, inputs, variant)
         # the kernel's own device time; a stream timer around the call
         # also counts the wrapper's host work, which exceeds a short
         # kernel's time
         call_ms = time_ms(launch, 20)
         ms = device_ms(launch, 20, kname)
-        timer = "profiler"
-        if ms is None:
-            ms, timer = call_ms, "events"
-        plain_ms = time_ms(lambda: plain_chunk(solver, inputs, variant, 1.8,
-                                               torch.float32), 3)
+        check(ms is not None, f"{name}: the profiler recorded no device "
+                              f"time for {kname}")
+        plain_ms = time_ms(lambda: plain_chunk(solver, inputs, variant,
+                                               ALPHA[variant], torch.float32),
+                           3)
         need = bound(op, b_main, lp.m, lp.n, variant, needed=True)
         stored = bound(op, b_main, lp.m, lp.n, variant, needed=False)
         log(f"[kernels] {name} timing B={b_main} {variant} x{CHUNK_ITERS}: "
-            f"kernel {ms:.4f} ms ({timer}; {call_ms:.4f} ms a call), plain "
+            f"kernel {ms:.4f} ms (device; {call_ms:.4f} ms a call), plain "
             f"{plain_ms:.4f} ms; bound of the "
             f"work needed {need[0]:.4f} ms by {need[1]} ({need[2]} B, "
             f"{need[3]} fp32 ops); bound as computed {stored[0]:.4f} ms by "
@@ -445,7 +470,7 @@ def kernel_phase():
         rs["plain_f32_runs"] = max(rs["plain_f32_runs"], worst_rand[1])
         if timed:
             rec.update({
-                "ms": ms, "ms_timer": timer, "call_ms": call_ms,
+                "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "bound_ms": need[0],
                 "bound_by": need[1], "library_ms": None,
                 "bound_as_computed_ms": stored[0],
@@ -456,6 +481,32 @@ def kernel_phase():
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return records, checked
+
+
+def time_kernels(root, reps=20):
+    """``--time``: each kernel's device time and call time a launch at
+    its main shape, for the package under ``root``; one JSON line."""
+    sys.path.insert(0, root)
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    check(fc.__file__.startswith(root), f"imported {fc.__file__}")
+    fc.build()
+    rec = {"card": card_line(), "root": root, "iters": CHUNK_ITERS,
+           "kernel_ms": {}, "call_ms": {}}
+    for kname, scheme, daily, T, B in (
+            (fc.KERNEL_BANDED, "month", 1, 744, 7 * MAIN_CASES),
+            (fc.KERNEL_DENSE, 168, 0, 168, 52 * WEEKLY_CASES)):
+        lp = window_lps(scheme, daily)[T]
+        solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
+        launch = chunk_launcher(solver, chunk_inputs(solver, B, seed=7),
+                                fc.REFLECTED)
+        key = f"{kname} {lp.m}x{lp.n} B={B}"
+        ms = device_ms(launch, reps, kname)
+        check(ms is not None, f"the profiler recorded no time for {kname}")
+        rec["kernel_ms"][key] = ms
+        rec["call_ms"][key] = time_ms(launch, reps)
+    print(json.dumps(rec), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +643,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path with torch.profiler and "
                          "print the device's busy share")
+    ap.add_argument("--time", metavar="DIR",
+                    help="only time the kernels of the package under DIR")
     args = ap.parse_args()
     try:
         import torch
@@ -601,6 +654,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if args.time:
+        import os
+        return time_kernels(os.path.realpath(args.time))
     try:
         from dervet_tpu_torch.ops import fused_chunk as fc
     except ImportError as e:
@@ -616,7 +672,8 @@ def main() -> int:
     for rec in report:
         v, t, cpt, rpt, minb = rec["template"]
         log(f"[build] {rec['kernel']}<variant={v}, threads={t}, "
-            f"cols/thread={cpt}, rows/thread={rpt}, blocks/SM={minb}>: "
+            f"cols/thread={cpt}, rows/thread={rpt}, blocks/SM={minb}>"
+            f"{' (state in shared memory)' if cpt == 0 else ''}: "
             f"{rec['registers']} "
             f"registers, {rec['stack']} B stack, {rec['spill_stores']} B "
             f"spill stores, {rec['spill_loads']} B spill loads")

@@ -147,6 +147,49 @@ def multi_der_window_lp(seed: int = 0):
     return b.build()
 
 
+def fr_window_lp(seed: int = 0):
+    """The first monthly window LP (3752 x 4464, ten bands and 31
+    daily-cycle rows) of the Battery + PV case with ``daily_cycle_limit=1``
+    bidding frequency regulation beside DA time-shift: FR up and down
+    capacity at seeded prices of 10-15 $/MW-h, 0.5 h of energy
+    reserved per awarded kW, 0.3 kWh/kW-h of expected throughput.  Its
+    market rows make it the shape the chunk kernels take only in their
+    shared-state configuration."""
+    import dataclasses
+    from .scenario.scenario import MicrogridScenario
+    case = synthetic_case(seed=seed, daily_cycle_limit=1)
+    ts = case.datasets.time_series.copy()
+    rng = np.random.default_rng(seed + 3)
+    for col in ("Reg Up Price ($/kW)", "Reg Down Price ($/kW)"):
+        ts[col] = 0.01 + 0.005 * rng.random(len(ts))
+    case = dataclasses.replace(
+        case, streams={"DA": {"growth": 0.0},
+                       "FR": {"growth": 0.0, "duration": 0.5, "eou": 0.3,
+                              "eod": 0.3}},
+        datasets=dataclasses.replace(case.datasets, time_series=ts))
+    scen = MicrogridScenario(case)
+    scen.prepare_dispatch("cpu")
+    return scen.build_window_lp(scen.windows[0], scen._annuity_scalar,
+                                scen._requirements)
+
+
+def dense_block_lp(m: int = 200, n: int = 600, seed: int = 0):
+    """An LP whose K has no band structure, so the solver keeps it as a
+    dense op: n columns in [0, 1] with seeded costs, and m rows
+    ``A x <= 0.25 A 1`` with every entry of A non-zero (uniform in
+    [0.1, 1.1)).  Its compact forms (m n entries) are too large to stage
+    in shared memory, so the dense chunk kernel takes it in its
+    shared-state configuration."""
+    from .ops.lp import LPBuilder
+    rng = np.random.default_rng(seed)
+    A = 0.1 + rng.random((m, n))
+    b = LPBuilder()
+    x = b.var("x", n, 0.0, 1.0)
+    b.add_cost(x, -rng.random(n))
+    b.add_rows("budget", [(x, A)], "le", 0.25 * A.sum(axis=1))
+    return b.build()
+
+
 # solve-ledger schema: the observable contract the tests and chip_smoke.py assert.
 # Every group entry must carry the batch shape + wall clock; device
 # entries additionally carry the device-traffic split and the kernel.

@@ -23,45 +23,55 @@
 // K[i, i + d_b] = diags[b, i] (the banded op; none for the dense op),
 // and (b) a compact sparse part over r rows with nnz entries, built once
 // per operator on the host (dervet_tpu_torch/ops/pdhg.py, CompactK):
-//   by column: for the nc columns from col_lo on, each column's entries
-//              padded to cmax, as (K's row, value, the entry's position
-//              in row-major order); padding sits at the tail as (row 0,
-//              value 0, position nnz);
-//   by row:    indptr, row k owning positions [indptr[k], indptr[k+1]),
-//              with row_slot[i] = the compact row of K's row i, or -1.
+//   by row (CSR):    row k's entries indptr[k]..indptr[k+1] of row_cols,
+//                    row_vals; row_slot[i] = the compact row of K's row i,
+//                    or -1;
+//   by column (CSC): column col_lo + c's entries col_ptr[c]..col_ptr[c+1]
+//                    of col_rows (K's row), col_vals.
 // For the banded op the compact part is the wide-row pair (31 daily-cycle
 // rows at the monthly window: 24 entries each, at most 1 per column);
 // for the dense op it is all of K (at most 4 entries per row, 2 per
 // column at the weekly window).  No zero of K is stored or multiplied,
-// except the bands' ends and the column padding.
+// except the bands' ends.
 //
-// Design.  One thread block owns one instance.  Thread t of T owns
-// columns t + s*T (s < CPT) and rows t + s*T (s < RPT), and keeps what
-// only the owner touches in registers for the whole chunk: x and x_sum
-// per column; y, y_sum, q and the row's compact slot per row.  Shared
-// memory holds what other threads read -- 2 x1 - x with a zero halo, y,
-// the band diagonals, the compact forms and one product per compact
-// entry -- plus c, l, u and the halpern anchors, which only the owner
-// reads but which would cost registers the occupancy needs.  Everything
-// of K is staged into shared memory once per launch.  An iteration is
-// two phases separated by __syncthreads:
+// Design.  One thread block owns one instance.  In a register
+// configuration (T, CPT, RPT), thread t owns columns t + s*T (s < CPT) and
+// rows t + s*T (s < RPT), and keeps what only the owner touches in
+// registers for the whole chunk: x per column; y, y_sum, q and the row's
+// compact slot per row.  Shared memory holds what other threads read --
+// 2 x1 - x with a zero halo, y, the band diagonals and both compact
+// forms -- plus c, l, u, x_sum and the halpern anchors, which only the
+// owner reads but which would cost registers the occupancy needs (with
+// x_sum in registers the 768-thread halpern instance spills).
+// Everything of K is staged into shared memory once per launch, the
+// compact entries as (index, value bits) pairs: one 8-byte load an
+// entry, and two base pointers fewer (with four separate arrays the
+// 512-thread instances spill 4 bytes).  An
+// iteration is two phases separated by __syncthreads:
 //   columns: g = K^T y (band b adds diags[b, j - d_b] y[j - d_b] when
 //            0 <= j - d_b < m, a predicate and no branch; then the
-//            column's compact entries, skipped by a register bitmask for
-//            columns that have none), the primal update, 2 x1 - x to
-//            shared memory, and each compact entry's product
-//            value * (2 x1 - x)[j] at its row-major position;
+//            column's CSC entries), the primal update, 2 x1 - x to
+//            shared memory;
 //   rows:    K (2 x1 - x) (band b reads 2 x1 - x at i + d_b, inside the
-//            halo, no test); a row with a compact slot adds the sum of
-//            its positions itself (24 shared loads at the monthly
-//            window), so the wide rows need no third barrier, no
-//            cross-thread reduction and no dependent global loads; the
-//            dual update, y to shared memory.
-// The thread configurations (T, CPT, RPT) are template parameters so the
-// state arrays are registers; the wrapper picks the smallest that covers
-// the shape (CONFIGS, mirrored in ops/fused_chunk.py).  The band
-// offsets ride in the kernel's parameters (constant bank, a uniform
-// read).
+//            halo, no test); a row with a compact slot adds its CSR
+//            entries itself, reading 2 x1 - x from shared memory (24 at
+//            the monthly window), so the wide rows need no third barrier
+//            and no cross-thread reduction; the dual update, y to shared
+//            memory.
+// The register configurations are template parameters so the state
+// arrays are registers; the wrapper picks the first that covers the shape
+// and fits shared memory (CONFIGS, mirrored in ops/fused_chunk.py).
+// The band offsets ride in the kernel's parameters (constant bank, a
+// uniform read).
+//
+// Shapes no register configuration holds (more columns or rows than its
+// threads cover, or bands and compact forms too large to stage) run the
+// shared-state configuration (CPT = RPT = 0): 1024 threads loop over the
+// columns and rows, keep x, x_sum, 2 x1 - x, c, l, u, y, y_sum and q in
+// shared memory (the first kernels' layout, 4 (6n + 3m) bytes), and read
+// the band diagonals, both compact forms and the halpern anchors through
+// L1/L2, with a bounds predicate per band in both phases.  It takes every
+// shape the first kernels took.
 //
 // Tensor cores are not used.  K is shared by the batch, so its products
 // could run as (B, m)(m, n) matrix products on wgmma, as the TPU's MXU
@@ -80,8 +90,8 @@
 // one block's iteration is a dependent chain of them, so the time goes
 // with the blocks an SM runs at once and the work each thread does
 // serially.  At the monthly shape a block is 512 threads, 6 columns and
-// 2 rows a thread, 64 registers and 75 KB of shared memory, two blocks
-// per SM.  Measured on an H100 (PERF.md, PR 2): 256 threads with 12
+// 2 rows a thread, 64 registers and 90 KB of shared memory (105 KB under
+// halpern), two blocks per SM.  Measured on an H100 (PERF.md, PR 2): 256 threads with 12
 // columns each take 1.6x as long per block, and holding them to 80
 // registers for three blocks per SM spills.
 //
@@ -103,12 +113,14 @@ struct ChunkArgs {
   float *xo, *yo, *xso, *yso;
   const float* diags;     // (nb, m) or null
   const int* row_slot;    // (m,) compact row of K's row i, or -1
-  const int* indptr;      // (r + 1,) positions of each compact row
-  const int* col_rows;    // (nc, cmax) K's row of each column entry
-  const float* col_vals;  // (nc, cmax)
-  const int* col_pos;     // (nc, cmax) the entry's position (nnz: padding)
+  const int* indptr;      // (r + 1,) CSR: row k's entries
+  const int* row_cols;    // (nnz,) K's column of each entry, by row
+  const float* row_vals;  // (nnz,)
+  const int* col_ptr;     // (nc + 1,) CSC: column col_lo + c's entries
+  const int* col_rows;    // (nnz,) K's row of each entry, by column
+  const float* col_vals;  // (nnz,)
   int off[kMaxBands];     // band offsets d_b
-  int nb, hxl, hxr, r, nnz, col_lo, nc, cmax, m, n, n_eq, iters;
+  int nb, hxl, hxr, r, nnz, col_lo, nc, m, n, n_eq, iters;
   float alpha;
 };
 
@@ -121,55 +133,74 @@ __device__ __forceinline__ float yproj(float v, bool eq) {
   return eq ? v : fmaxf(v, 0.0f);
 }
 
+// the step variant's new x from x, x1 = T(x) and (halpern) the anchor
+template <int V>
+__device__ __forceinline__ float xstep(float xv, float x1, float lo,
+                                       float hi, float alpha, float lam,
+                                       float anchor) {
+  if constexpr (V == kVanilla) return x1;
+  if constexpr (V == kReflected) return clip(xv + alpha * (x1 - xv), lo, hi);
+  return clip(lam * (xv + alpha * (x1 - xv)) + (1.0f - lam) * anchor, lo, hi);
+}
+
+template <int V>
+__device__ __forceinline__ float ystep(float yv, float y1, bool eq,
+                                       float alpha, float lam, float anchor) {
+  if constexpr (V == kVanilla) return y1;
+  if constexpr (V == kReflected) return yproj(yv + alpha * (y1 - yv), eq);
+  return yproj(lam * (yv + alpha * (y1 - yv)) + (1.0f - lam) * anchor, eq);
+}
+
 // shared 4-byte words one block uses (fused_chunk.smem_bytes mirrors it)
 __host__ __device__ __forceinline__ size_t smem_words(const ChunkArgs& a,
-                                                      bool halpern) {
-  return 4 * (size_t)a.n + a.hxl + a.hxr + a.m + (size_t)a.nb * a.m +
-         3 * (size_t)a.nc * a.cmax + (a.r + 1) + (a.nnz + 1) +
+                                                      bool halpern,
+                                                      bool shared_state) {
+  if (shared_state) return 6 * (size_t)a.n + 3 * (size_t)a.m;
+  return 5 * (size_t)a.n + a.hxl + a.hxr + a.m + (size_t)a.nb * a.m +
+         (a.nc + 1) + (a.r + 1) + 4 * (size_t)a.nnz +
          (halpern ? (size_t)a.n + a.m : 0);
 }
 
+// A register configuration: thread tid owns columns tid + s*T (s < CPT)
+// and rows tid + s*T (s < RPT).
 template <int V, int T, int CPT, int RPT>
 __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
-  static_assert(CPT <= 32, "the compact-column bitmask is 32 bits");
   extern __shared__ float smem[];
   const int tid = threadIdx.x, b = blockIdx.x;
-  const int m = a.m, n = a.n, nb = a.nb, hxl = a.hxl, cmax = a.cmax;
-  const int col_lo = a.col_lo, ncm = a.nc * cmax;
-  float* sc = smem;                    // (n) c, l, u
+  const int m = a.m, n = a.n, nb = a.nb, hxl = a.hxl, nnz = a.nnz;
+  const int col_lo = a.col_lo, nc = a.nc;
+  // the compact entries as (index, value bits) pairs, one 8-byte load
+  // an entry, at the front where they are 8-byte aligned
+  int2* scrv = reinterpret_cast<int2*>(smem);  // (nnz) CSC: K's row, value
+  int2* srcv = scrv + nnz;             // (nnz) CSR: K's column, value
+  float* sc = reinterpret_cast<float*>(srcv + nnz);  // (n) c, l, u, x_sum
   float* sl = sc + n;
   float* su = sl + n;
-  float* sxb = su + n;                 // (hxl + n + hxr) 2 x1 - x
+  float* sxs = su + n;
+  float* sxb = sxs + n;                // (hxl + n + hxr) 2 x1 - x
   float* sy = sxb + hxl + n + a.hxr;   // (m) y
   float* sdg = sy + m;                 // (nb, m) band diagonals
-  int* scr = reinterpret_cast<int*>(sdg + (size_t)nb * m);  // column form
-  float* scv = reinterpret_cast<float*>(scr + ncm);
-  int* scp = reinterpret_cast<int*>(scv + ncm);
-  int* sip = scp + ncm;                // (r + 1) indptr
-  float* sprod = reinterpret_cast<float*>(sip + a.r + 1);  // (nnz + 1)
-  float* sax = sprod + a.nnz + 1;      // halpern anchors (n), then (m)
-  float* say = sax + n;
+  int* scp = reinterpret_cast<int*>(sdg + (size_t)nb * m);  // (nc + 1)
+  int* sip = scp + nc + 1;             // (r + 1)
+  float* sax = reinterpret_cast<float*>(sip + a.r + 1);  // halpern
+  float* say = sax + n;                // anchors (n), then (m)
   const float* xb = sxb + hxl;         // xb[j] = (2 x1 - x)[j]
   const size_t ox = (size_t)b * n, oy = (size_t)b * m;
 
-  float x[CPT], xs[CPT];
+  float x[CPT];
   float y[RPT], ys[RPT], q[RPT];
   int slot[RPT];
-  unsigned has_compact = 0u;           // bit s: column s has entries
 #pragma unroll
   for (int s = 0; s < CPT; ++s) {
     const int j = tid + s * T;
-    x[s] = xs[s] = 0.0f;
+    x[s] = 0.0f;
     if (j < n) {
       x[s] = a.x[ox + j];
-      xs[s] = a.xs[ox + j];
+      sxs[j] = a.xs[ox + j];
       sc[j] = a.c[ox + j];
       sl[j] = a.l[ox + j];
       su[j] = a.u[ox + j];
       if constexpr (V == kHalpern) sax[j] = a.ax[ox + j];
-      const int c = j - col_lo;
-      if (c >= 0 && c < a.nc && a.col_vals[(size_t)c * cmax] != 0.0f)
-        has_compact |= 1u << s;
     }
   }
 #pragma unroll
@@ -189,20 +220,19 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
   for (int t = tid; t < hxl; t += T) sxb[t] = 0.0f;
   for (int t = tid; t < a.hxr; t += T) sxb[hxl + n + t] = 0.0f;
   for (int t = tid; t < nb * m; t += T) sdg[t] = a.diags[t];
-  for (int t = tid; t < ncm; t += T) {
-    scr[t] = a.col_rows[t];
-    scv[t] = a.col_vals[t];
-    scp[t] = a.col_pos[t];
-  }
+  for (int t = tid; t <= nc; t += T) scp[t] = a.col_ptr[t];
   for (int t = tid; t <= a.r; t += T) sip[t] = a.indptr[t];
+  for (int t = tid; t < nnz; t += T) {
+    scrv[t] = make_int2(a.col_rows[t], __float_as_int(a.col_vals[t]));
+    srcv[t] = make_int2(a.row_cols[t], __float_as_int(a.row_vals[t]));
+  }
   const float tau = a.tau[b], sig = a.sig[b], alpha = a.alpha;
   float kf = (V == kHalpern) ? a.k0[b] : 0.0f;
   __syncthreads();
 
   for (int it = 0; it < a.iters; ++it) {
     const float lam = (V == kHalpern) ? (kf + 1.0f) / (kf + 2.0f) : 0.0f;
-    // columns: g = K^T y, then the primal update and the compact
-    // entries' products (K x's share of them) at their positions
+    // columns: g = K^T y, then the primal update
     float g[CPT];
 #pragma unroll
     for (int s = 0; s < CPT; ++s) g[s] = 0.0f;
@@ -217,11 +247,14 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
     }
 #pragma unroll
     for (int s = 0; s < CPT; ++s) {
-      if (has_compact >> s & 1u) {
-        const int e = (tid + s * T - col_lo) * cmax;
+      const int cc = tid + s * T - col_lo;
+      if ((unsigned)cc < (unsigned)nc) {
         float gw = 0.0f;
-        for (int p = 0; p < cmax; ++p)
-          gw = fmaf(sy[scr[e + p]], scv[e + p], gw);
+        const int p1 = scp[cc + 1];
+        for (int p = scp[cc]; p < p1; ++p) {
+          const int2 e = scrv[p];
+          gw = fmaf(__int_as_float(e.y), sy[e.x], gw);
+        }
         g[s] += gw;
       }
     }
@@ -231,23 +264,11 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
       if (j < n) {
         const float lo = sl[j], hi = su[j], xv = x[s];
         const float x1 = clip(xv - tau * (sc[j] - g[s]), lo, hi);
-        const float xbv = 2.0f * x1 - xv;
-        sxb[hxl + j] = xbv;
-        if (has_compact >> s & 1u) {
-          const int e = (j - col_lo) * cmax;
-          for (int p = 0; p < cmax; ++p) sprod[scp[e + p]] = scv[e + p] * xbv;
-        }
-        float xn;
-        if constexpr (V == kVanilla) {
-          xn = x1;
-        } else if constexpr (V == kReflected) {
-          xn = clip(xv + alpha * (x1 - xv), lo, hi);
-        } else {
-          const float xr = xv + alpha * (x1 - xv);
-          xn = clip(lam * xr + (1.0f - lam) * sax[j], lo, hi);
-        }
+        sxb[hxl + j] = 2.0f * x1 - xv;
+        const float xn = xstep<V>(xv, x1, lo, hi, alpha, lam,
+                                  V == kHalpern ? sax[j] : 0.0f);
         x[s] = xn;
-        xs[s] += xn;
+        sxs[j] += xn;
       }
     }
     __syncthreads();
@@ -273,21 +294,17 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
           float w = 0.0f;
           const int p1 = sip[k + 1];
 #pragma unroll 4
-          for (int p = sip[k]; p < p1; ++p) w += sprod[p];
+          for (int p = sip[k]; p < p1; ++p) {
+            const int2 e = srcv[p];
+            w = fmaf(__int_as_float(e.y), xb[e.x], w);
+          }
           kx[s] += w;
         }
         const bool eq = i < a.n_eq;
         const float yv = y[s];
         const float y1 = yproj(yv + sig * (q[s] - kx[s]), eq);
-        float yn;
-        if constexpr (V == kVanilla) {
-          yn = y1;
-        } else if constexpr (V == kReflected) {
-          yn = yproj(yv + alpha * (y1 - yv), eq);
-        } else {
-          const float yr = yv + alpha * (y1 - yv);
-          yn = yproj(lam * yr + (1.0f - lam) * say[i], eq);
-        }
+        const float yn = ystep<V>(yv, y1, eq, alpha, lam,
+                                  V == kHalpern ? say[i] : 0.0f);
         y[s] = yn;
         ys[s] += yn;
         sy[i] = yn;
@@ -301,7 +318,7 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
     const int j = tid + s * T;
     if (j < n) {
       a.xo[ox + j] = x[s];
-      a.xso[ox + j] = xs[s];
+      a.xso[ox + j] = sxs[j];
     }
   }
 #pragma unroll
@@ -314,18 +331,121 @@ __device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
   }
 }
 
+// The shared-state configuration: any number of columns and rows, the
+// state in shared memory, K and the halpern anchors through L1/L2.
+template <int V, int T>
+__device__ __forceinline__ void chunk_body_shared(const ChunkArgs& a) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int m = a.m, n = a.n, nb = a.nb, col_lo = a.col_lo, nc = a.nc;
+  float* sc = smem;                    // (n) c, l, u, x, x_sum, 2 x1 - x
+  float* sl = sc + n;
+  float* su = sl + n;
+  float* sx = su + n;
+  float* sxs = sx + n;
+  float* sxb = sxs + n;
+  float* sy = sxb + n;                 // (m) y, y_sum, q
+  float* sys = sy + m;
+  float* sq = sys + m;
+  const size_t ox = (size_t)b * n, oy = (size_t)b * m;
+  for (int j = tid; j < n; j += T) {
+    sc[j] = a.c[ox + j];
+    sl[j] = a.l[ox + j];
+    su[j] = a.u[ox + j];
+    sx[j] = a.x[ox + j];
+    sxs[j] = a.xs[ox + j];
+  }
+  for (int i = tid; i < m; i += T) {
+    sy[i] = a.y[oy + i];
+    sys[i] = a.ys[oy + i];
+    sq[i] = a.q[oy + i];
+  }
+  const float tau = a.tau[b], sig = a.sig[b], alpha = a.alpha;
+  float kf = (V == kHalpern) ? a.k0[b] : 0.0f;
+  __syncthreads();
+
+  for (int it = 0; it < a.iters; ++it) {
+    const float lam = (V == kHalpern) ? (kf + 1.0f) / (kf + 2.0f) : 0.0f;
+    for (int j = tid; j < n; j += T) {
+      float g = 0.0f;
+      for (int bb = 0; bb < nb; ++bb) {
+        const int i = j - a.off[bb];
+        if ((unsigned)i < (unsigned)m)
+          g = fmaf(__ldg(a.diags + (size_t)bb * m + i), sy[i], g);
+      }
+      const int cc = j - col_lo;
+      if ((unsigned)cc < (unsigned)nc) {
+        float gw = 0.0f;
+        const int p1 = __ldg(a.col_ptr + cc + 1);
+        for (int p = __ldg(a.col_ptr + cc); p < p1; ++p)
+          gw = fmaf(__ldg(a.col_vals + p), sy[__ldg(a.col_rows + p)], gw);
+        g += gw;
+      }
+      const float lo = sl[j], hi = su[j], xv = sx[j];
+      const float x1 = clip(xv - tau * (sc[j] - g), lo, hi);
+      sxb[j] = 2.0f * x1 - xv;
+      const float xn = xstep<V>(xv, x1, lo, hi, alpha, lam,
+                                V == kHalpern ? a.ax[ox + j] : 0.0f);
+      sx[j] = xn;
+      sxs[j] += xn;
+    }
+    __syncthreads();
+    for (int i = tid; i < m; i += T) {
+      float kx = 0.0f;
+      for (int bb = 0; bb < nb; ++bb) {
+        const int j = i + a.off[bb];
+        if ((unsigned)j < (unsigned)n)
+          kx = fmaf(__ldg(a.diags + (size_t)bb * m + i), sxb[j], kx);
+      }
+      const int k = __ldg(a.row_slot + i);
+      if (k >= 0) {
+        float w = 0.0f;
+        const int p1 = __ldg(a.indptr + k + 1);
+        for (int p = __ldg(a.indptr + k); p < p1; ++p)
+          w = fmaf(__ldg(a.row_vals + p), sxb[__ldg(a.row_cols + p)], w);
+        kx += w;
+      }
+      const bool eq = i < a.n_eq;
+      const float yv = sy[i];
+      const float y1 = yproj(yv + sig * (sq[i] - kx), eq);
+      const float yn = ystep<V>(yv, y1, eq, alpha, lam,
+                                V == kHalpern ? a.ay[oy + i] : 0.0f);
+      sy[i] = yn;
+      sys[i] += yn;
+    }
+    __syncthreads();
+    if (V == kHalpern) kf += 1.0f;
+  }
+  for (int j = tid; j < n; j += T) {
+    a.xo[ox + j] = sx[j];
+    a.xso[ox + j] = sxs[j];
+  }
+  for (int i = tid; i < m; i += T) {
+    a.yo[oy + i] = sy[i];
+    a.yso[oy + i] = sys[i];
+  }
+}
+
+template <int V, int T, int CPT, int RPT>
+__device__ __forceinline__ void body(const ChunkArgs& a) {
+  if constexpr (CPT == 0)
+    chunk_body_shared<V, T>(a);
+  else
+    chunk_body<V, T, CPT, RPT>(a);
+}
+
 // The arguments stay in the kernel's parameter space (__grid_constant__):
 // the band offsets are read there with a loop index, without a copy.
 template <int V, int T, int CPT, int RPT, int MINB>
 __global__ void __launch_bounds__(T, MINB)
     banded_chunk_kernel(const __grid_constant__ ChunkArgs a) {
-  chunk_body<V, T, CPT, RPT>(a);
+  body<V, T, CPT, RPT>(a);
 }
 
 template <int V, int T, int CPT, int RPT, int MINB>
 __global__ void __launch_bounds__(T, MINB)
     dense_chunk_kernel(const __grid_constant__ ChunkArgs a) {
-  chunk_body<V, T, CPT, RPT>(a);
+  body<V, T, CPT, RPT>(a);
 }
 
 template <typename KernelT>
@@ -345,9 +465,11 @@ cudaError_t launch(KernelT kernel, int threads, int B, size_t smem,
 
 // The thread configurations (threads, columns a thread, rows a thread,
 // blocks per SM the launch bounds hold the registers to), in the order
-// the wrapper tries them; ops/fused_chunk.py CONFIGS mirrors this list.
+// the wrapper tries them; the last (0 columns and rows a thread) is the
+// shared-state one.  ops/fused_chunk.py CONFIGS mirrors this list.
 #define FOR_EACH_CONFIG(X) \
-  X(128, 2, 1, 2) X(256, 3, 1, 2) X(512, 6, 2, 2) X(768, 8, 3, 1)
+  X(128, 2, 1, 2) X(256, 3, 1, 2) X(512, 6, 2, 2) X(768, 8, 3, 1) \
+  X(1024, 0, 0, 1)
 
 template <int V>
 cudaError_t dispatch(bool banded, int threads, int cpt, int rpt, int minb,
@@ -368,17 +490,21 @@ int run(bool banded, const float* c, const float* q, const float* l,
         const float* y, const float* xs, const float* ys, const float* k0,
         const float* ax, const float* ay, float* xo, float* yo, float* xso,
         float* yso, const int* row_slot, const int* indptr,
-        const int* col_rows, const float* col_vals, const int* col_pos,
-        int r, int nnz, int col_lo, int nc, int cmax, int B, int m, int n,
-        int n_eq, int iters, int variant, float alpha, int threads, int cpt,
-        int rpt, int minb, const float* diags, const int* offsets, int nb,
-        void* stream) {
-  if (nb < 0 || nb > kMaxBands || (long long)threads * cpt < n ||
-      (long long)threads * rpt < m)
+        const int* row_cols, const float* row_vals, const int* col_ptr,
+        const int* col_rows, const float* col_vals, int r, int nnz,
+        int col_lo, int nc, int B, int m, int n, int n_eq, int iters,
+        int variant, float alpha, int threads, int cpt, int rpt, int minb,
+        const float* diags, const int* offsets, int nb, void* stream) {
+  const bool shared_state = cpt == 0;
+  if (nb < 0 || nb > kMaxBands ||
+      (!shared_state && ((long long)threads * cpt < n ||
+                         (long long)threads * rpt < m)))
     return (int)cudaErrorInvalidValue;
-  ChunkArgs a = {c,  q,  l,  u,  tau, sig,      x,       y,        xs,
-                 ys, k0, ax, ay, xo,  yo,       xso,     yso,      diags,
-                 row_slot, indptr, col_rows, col_vals, col_pos};
+  ChunkArgs a = {c,        q,        l,        u,        tau,      sig,
+                 x,        y,        xs,       ys,       k0,       ax,
+                 ay,       xo,       yo,       xso,      yso,      diags,
+                 row_slot, indptr,   row_cols, row_vals, col_ptr,  col_rows,
+                 col_vals};
   int dmin = 0, dmax = 0;
   for (int t = 0; t < nb; ++t) {
     a.off[t] = offsets[t];
@@ -392,13 +518,13 @@ int run(bool banded, const float* c, const float* q, const float* l,
   a.nnz = nnz;
   a.col_lo = col_lo;
   a.nc = nc;
-  a.cmax = cmax;
   a.m = m;
   a.n = n;
   a.n_eq = n_eq;
   a.iters = iters;
   a.alpha = alpha;
-  const size_t smem = sizeof(float) * smem_words(a, variant == kHalpern);
+  const size_t smem =
+      sizeof(float) * smem_words(a, variant == kHalpern, shared_state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (variant) {
@@ -432,16 +558,18 @@ int banded_chunk(const float* c, const float* q, const float* l,
                  const float* ys, const float* k0, const float* ax,
                  const float* ay, float* xo, float* yo, float* xso,
                  float* yso, const int* row_slot, const int* indptr,
-                 const int* col_rows, const float* col_vals,
-                 const int* col_pos, int r, int nnz, int col_lo, int nc,
-                 int cmax, int B, int m, int n, int n_eq, int iters,
-                 int variant, float alpha, int threads, int cpt, int rpt,
-                 int minb, const float* diags, const int* offsets, int nb,
+                 const int* row_cols, const float* row_vals,
+                 const int* col_ptr, const int* col_rows,
+                 const float* col_vals, int r, int nnz, int col_lo, int nc,
+                 int B, int m, int n, int n_eq, int iters, int variant,
+                 float alpha, int threads, int cpt, int rpt, int minb,
+                 const float* diags, const int* offsets, int nb,
                  void* stream) {
   return run(true, c, q, l, u, tau, sig, x, y, xs, ys, k0, ax, ay, xo, yo,
-             xso, yso, row_slot, indptr, col_rows, col_vals, col_pos, r, nnz,
-             col_lo, nc, cmax, B, m, n, n_eq, iters, variant, alpha, threads,
-             cpt, rpt, minb, diags, offsets, nb, stream);
+             xso, yso, row_slot, indptr, row_cols, row_vals, col_ptr,
+             col_rows, col_vals, r, nnz, col_lo, nc, B, m, n, n_eq, iters,
+             variant, alpha, threads, cpt, rpt, minb, diags, offsets, nb,
+             stream);
 }
 
 int dense_chunk(const float* c, const float* q, const float* l,
@@ -450,15 +578,17 @@ int dense_chunk(const float* c, const float* q, const float* l,
                 const float* ys, const float* k0, const float* ax,
                 const float* ay, float* xo, float* yo, float* xso,
                 float* yso, const int* row_slot, const int* indptr,
-                const int* col_rows, const float* col_vals,
-                const int* col_pos, int r, int nnz, int col_lo, int nc,
-                int cmax, int B, int m, int n, int n_eq, int iters,
-                int variant, float alpha, int threads, int cpt, int rpt,
-                int minb, void* stream) {
+                const int* row_cols, const float* row_vals,
+                const int* col_ptr, const int* col_rows,
+                const float* col_vals, int r, int nnz, int col_lo, int nc,
+                int B, int m, int n, int n_eq, int iters, int variant,
+                float alpha, int threads, int cpt, int rpt, int minb,
+                void* stream) {
   return run(false, c, q, l, u, tau, sig, x, y, xs, ys, k0, ax, ay, xo, yo,
-             xso, yso, row_slot, indptr, col_rows, col_vals, col_pos, r, nnz,
-             col_lo, nc, cmax, B, m, n, n_eq, iters, variant, alpha, threads,
-             cpt, rpt, minb, nullptr, nullptr, 0, stream);
+             xso, yso, row_slot, indptr, row_cols, row_vals, col_ptr,
+             col_rows, col_vals, r, nnz, col_lo, nc, B, m, n, n_eq, iters,
+             variant, alpha, threads, cpt, rpt, minb, nullptr, nullptr, 0,
+             stream);
 }
 
 }  // extern "C"

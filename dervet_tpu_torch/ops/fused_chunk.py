@@ -54,12 +54,22 @@ KERNELS = (KERNEL_BANDED, KERNEL_DENSE)
 BLOCK_SMEM_BYTES = 232_448
 # band offsets travel in the kernel's parameters; the JAX kernel's cap
 MAX_BANDS = 32
+# The shared-state configuration reads K's compact forms through L2 on
+# every iteration; the cap keeps them inside the card's 50 MB L2.  It
+# takes every K the first dense kernel took (at most 10 MiB dense: 16
+# bytes an entry in the two forms, plus their pointers).
+MAX_K_BYTES = 48 * 1024 * 1024
 # The kernels' thread configurations, in the order config_for tries
 # them: (threads, columns a thread, rows a thread, blocks per SM the
 # launch bounds hold the registers to).  Thread t owns columns
 # t + s*threads and rows t + s*threads and keeps their state in
-# registers (mirrors FOR_EACH_CONFIG in the CUDA source).
-CONFIGS = ((128, 2, 1, 2), (256, 3, 1, 2), (512, 6, 2, 2), (768, 8, 3, 1))
+# registers.  The last, with no columns or rows a thread, keeps the
+# state in shared memory and loops over any number of columns and rows:
+# it takes the shapes no register configuration holds (mirrors
+# FOR_EACH_CONFIG in the CUDA source).
+SHARED_CONFIG = (1024, 0, 0, 1)
+CONFIGS = ((128, 2, 1, 2), (256, 3, 1, 2), (512, 6, 2, 2), (768, 8, 3, 1),
+           SHARED_CONFIG)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_chunk.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -87,12 +97,21 @@ def _count_launch(kernel: str) -> None:
 # Shape budget
 # ---------------------------------------------------------------------------
 
-def config_for(m: int, n: int) -> Optional[tuple[int, int, int, int]]:
-    """The first of ``CONFIGS`` whose threads cover n columns and m
-    rows, or None."""
+def config_for(m: int, n: int, offsets=(), part=None,
+               variant: str = VANILLA) -> Optional[tuple[int, int, int, int]]:
+    """The first of ``CONFIGS`` that takes the shape: a register
+    configuration whose threads cover n columns and m rows, or the
+    shared-state one, with the block's shared memory (:func:`smem_bytes`)
+    within ``BLOCK_SMEM_BYTES``; the shared-state one also needs K's
+    compact forms within ``MAX_K_BYTES``.  None if none takes it."""
     for cfg in CONFIGS:
         threads, cpt, rpt, _ = cfg
-        if n <= threads * cpt and m <= threads * rpt:
+        shared = cfg == SHARED_CONFIG
+        if shared and part is not None and compact_bytes(part) > MAX_K_BYTES:
+            continue
+        if (shared or (n <= threads * cpt and m <= threads * rpt)) and \
+                smem_bytes(m, n, offsets, part, variant, shared) \
+                <= BLOCK_SMEM_BYTES:
             return cfg
     return None
 
@@ -106,18 +125,20 @@ def halo(offsets, m: int, n: int) -> tuple[int, int]:
 
 
 def smem_bytes(m: int, n: int, offsets=(), part=None,
-               variant: str = VANILLA) -> int:
-    """One block's shared memory: c, l, u and 2x1-x with its halo (x
-    space); y and the band diagonals (y space); the compact forms of
-    ``part`` (the column span's rows, values and positions, ``indptr``)
-    and one product per entry plus a sink for padding; under halpern the
-    restart anchors.  The rest of the state lives in registers (mirrors
-    ``smem_words`` in the CUDA source)."""
+               variant: str = VANILLA, shared: bool = False) -> int:
+    """One block's shared memory (mirrors ``smem_words`` in the CUDA
+    source).  Register configurations: c, l, u, x_sum and 2x1-x with its
+    halo (x space); y and the band diagonals (y space); both compact
+    forms of ``part``; under halpern the restart anchors.  The rest of
+    the state lives in registers.  ``shared``, the shared-state
+    configuration: x, x_sum, 2x1-x, c, l, u and y, y_sum, q; it reads K
+    and the halpern anchors through L1/L2."""
+    if shared:
+        return 4 * (6 * n + 3 * m)
     hl, hr = halo(offsets, m, n)
-    words = 4 * n + hl + hr + m + len(offsets) * m
+    words = 5 * n + hl + hr + m + len(offsets) * m
     if part is not None:
-        nc, cmax = part.col_rows.shape
-        words += 3 * nc * cmax + part.indptr.shape[0] + part.nnz + 1
+        words += sum(t.numel() for t in _tensors(part)) - part.row_slot.numel()
     if variant == HALPERN:
         words += n + m
     return 4 * words
@@ -130,8 +151,8 @@ def compact_bytes(part) -> int:
 
 
 def _tensors(part) -> tuple:
-    return (part.row_slot, part.indptr, part.col_rows, part.col_vals,
-            part.col_pos)
+    return (part.row_slot, part.indptr, part.row_cols, part.row_vals,
+            part.col_ptr, part.col_rows, part.col_vals)
 
 
 def _shape(op) -> tuple[int, int, tuple]:
@@ -145,9 +166,8 @@ def _shape(op) -> tuple[int, int, tuple]:
 def supports(op, variant: str = VANILLA) -> bool:
     """Whether a chunk kernel takes ``op`` under ``variant``: a banded op
     without an ELL residual and at most ``MAX_BANDS`` bands, or a dense
-    op; with a thread configuration that covers its rows and columns,
-    and one instance's shared state and K's compact forms within one
-    block's shared memory.  All three variants are native."""
+    op; with a thread configuration that takes its shape
+    (:func:`config_for`).  All three variants are native."""
     from .pdhg import BandedOp, DenseOp
     if variant not in VARIANTS or not isinstance(op, (BandedOp, DenseOp)):
         return False
@@ -155,8 +175,7 @@ def supports(op, variant: str = VANILLA) -> bool:
                                      or len(op.offsets) > MAX_BANDS):
         return False
     m, n, offsets = _shape(op)
-    return config_for(m, n) is not None and smem_bytes(
-        m, n, offsets, op.compact, variant) <= BLOCK_SMEM_BYTES
+    return config_for(m, n, offsets, op.compact, variant) is not None
 
 
 def kernel_for(op) -> str:
@@ -198,32 +217,29 @@ def banded_rmatvec(diags, offsets, wide_rows, wide_w, y, n: int):
     return out
 
 
+def _segment_sum(ptr, prod):
+    """(B, len(ptr) - 1): the sums of ``prod``'s entries
+    ``ptr[k]:ptr[k + 1]``, as a kernel thread sums its row or column."""
+    k = ptr.shape[0] - 1
+    seg = torch.repeat_interleave(torch.arange(k, device=prod.device),
+                                  (ptr[1:] - ptr[:-1]).long())
+    out = torch.zeros(prod.shape[0], k, dtype=prod.dtype, device=prod.device)
+    return out.index_add(1, seg, prod)
+
+
 def compact_matvec(diags, offsets, part, x):
     """K @ x for (B, n) x from the bands and the compact forms, indexed
     as the kernels index them: each band through a zero halo around x;
-    each column entry's product written at its position (padding into
-    the sink at ``nnz``); each row whose ``row_slot`` k >= 0 adding the
-    sum of positions ``indptr[k]:indptr[k+1]``.  ``diags`` (nb, m) or
-    None."""
+    each row whose ``row_slot`` k >= 0 adding its CSR entries
+    ``indptr[k]:indptr[k+1]``.  ``diags`` (nb, m) or None."""
     m = part.row_slot.shape[0]
     hl, hr = halo(offsets, m, x.shape[1])
     xh = torch.nn.functional.pad(x, (hl, hr))
     out = torch.zeros(x.shape[0], m, dtype=x.dtype, device=x.device)
     for b, d in enumerate(offsets):
         out = out + diags[b] * xh[:, hl + d:hl + d + m]
-    nc, cmax = part.col_rows.shape
-    prod = torch.zeros(x.shape[0], part.nnz + 1, dtype=x.dtype,
-                       device=x.device)
-    xc = x[:, part.col_lo:part.col_lo + nc, None]
-    pos = part.col_pos.long().reshape(-1)
-    real = pos < part.nnz
-    prod[:, pos[real]] = (part.col_vals * xc).reshape(x.shape[0], -1)[:, real]
-    r = part.indptr.shape[0] - 1
-    seg = torch.repeat_interleave(
-        torch.arange(r, device=x.device),
-        (part.indptr[1:] - part.indptr[:-1]).long())
-    wide = torch.zeros(x.shape[0], r, dtype=x.dtype, device=x.device)
-    wide = wide.index_add(1, seg, prod[:, :part.nnz])
+    wide = _segment_sum(part.indptr,
+                        part.row_vals * x[:, part.row_cols.long()])
     has = part.row_slot >= 0
     out[:, has] = out[:, has] + wide[:, part.row_slot[has].long()]
     return out
@@ -231,8 +247,8 @@ def compact_matvec(diags, offsets, part, x):
 
 def compact_rmatvec(diags, offsets, part, y, n: int):
     """K.T @ y for (B, m) y, indexed as the kernels index it: column j
-    takes band b where ``0 <= j - d_b < m``, then every padded entry of
-    its column form (padding: row 0, value 0)."""
+    takes band b where ``0 <= j - d_b < m``, then, for j in the column
+    span, its CSC entries ``col_ptr[j - col_lo]:col_ptr[j - col_lo + 1]``."""
     m = y.shape[1]
     out = torch.zeros(y.shape[0], n, dtype=y.dtype, device=y.device)
     j = torch.arange(n, device=y.device)
@@ -241,9 +257,9 @@ def compact_rmatvec(diags, offsets, part, y, n: int):
         ok = (i >= 0) & (i < m)
         ic = i.clamp(0, m - 1)
         out = out + torch.where(ok, diags[b, ic] * y[:, ic], 0.0)
-    nc = part.col_rows.shape[0]
-    wide = (y[:, part.col_rows.long()] * part.col_vals).sum(-1)
-    out[:, part.col_lo:part.col_lo + nc] += wide
+    nc = part.col_ptr.shape[0] - 1
+    out[:, part.col_lo:part.col_lo + nc] += _segment_sum(
+        part.col_ptr, part.col_vals * y[:, part.col_rows.long()])
     return out
 
 
@@ -362,9 +378,9 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # state (13 in, 4 out), compact forms (5), their sizes and
-            # the shape (10), the step variant, the thread configuration
-            common = [P] * 17 + [P] * 5 + [I] * 10 + [I, F] + [I] * 4
+            # state (13 in, 4 out), compact forms (7), their sizes and
+            # the shape (9), the step variant, the thread configuration
+            common = [P] * 17 + [P] * 7 + [I] * 9 + [I, F] + [I] * 4
             lib.banded_chunk.argtypes = (
                 common + [P, ctypes.POINTER(I), I] + [P])
             lib.banded_chunk.restype = I
@@ -380,7 +396,9 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-_INT_KEYS = ("row_slot", "indptr", "col_rows", "col_pos")
+_FORMS = ("row_slot", "indptr", "row_cols", "row_vals", "col_ptr",
+          "col_rows", "col_vals")
+_INT_KEYS = ("row_slot", "indptr", "row_cols", "col_ptr", "col_rows")
 
 
 def _check(name: str, device, tensors: dict, shapes: dict) -> None:
@@ -413,24 +431,26 @@ def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
     """Check the arguments of either kernel and launch it on the current
     stream; returns (x, y, x_sum, y_sum)."""
     x = state["x"]
-    cfg = config_for(m, n)
-    if variant not in VARIANTS or len(offsets) > MAX_BANDS or cfg is None \
-            or smem_bytes(m, n, offsets, part, variant) > BLOCK_SMEM_BYTES:
+    cfg = None
+    if variant in VARIANTS and len(offsets) <= MAX_BANDS:
+        cfg = config_for(m, n, offsets, part, variant)
+    if cfg is None:
         raise ValueError(f"{kernel} does not take m={m} n={n} "
                          f"nb={len(offsets)} variant={variant!r}")
     r = part.indptr.shape[0] - 1
-    nc, cmax = part.col_rows.shape
+    nc = part.col_ptr.shape[0] - 1
+    nnz = part.nnz
     shapes = {"c": (B, n), "l": (B, n), "u": (B, n), "x": (B, n),
               "xs": (B, n), "q": (B, m), "y": (B, m), "ys": (B, m),
               "tau": (B,), "sig": (B,), "diags": (len(offsets), m),
-              "row_slot": (m,), "indptr": (r + 1,), "col_rows": (nc, cmax),
-              "col_vals": (nc, cmax), "col_pos": (nc, cmax)}
+              "row_slot": (m,), "indptr": (r + 1,), "row_cols": (nnz,),
+              "row_vals": (nnz,), "col_ptr": (nc + 1,), "col_rows": (nnz,),
+              "col_vals": (nnz,)}
     if variant == HALPERN:
         shapes.update({"k0": (B,), "ax": (B, n), "ay": (B, m)})
     else:
         state = {**state, "k0": None, "ax": None, "ay": None}
-    forms = dict(zip(("row_slot", "indptr", "col_rows", "col_vals",
-                      "col_pos"), _tensors(part)))
+    forms = dict(zip(_FORMS, _tensors(part)))
     _check(kernel, x.device, {**state, "diags": diags, **forms}, shapes)
     lib = _load()
     out = [torch.empty_like(x), torch.empty_like(state["y"]),
@@ -438,8 +458,8 @@ def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
     args = [_ptr(state[k]) for k in ("c", "q", "l", "u", "tau", "sig", "x",
                                      "y", "xs", "ys", "k0", "ax", "ay")]
     args += [_ptr(t) for t in out] + [_ptr(t) for t in forms.values()]
-    args += [r, part.nnz, part.col_lo, nc, cmax, B, m, n, int(n_eq),
-             int(iters), _VARIANT_CODE[variant], float(alpha), *cfg]
+    args += [r, nnz, part.col_lo, nc, B, m, n, int(n_eq), int(iters),
+             _VARIANT_CODE[variant], float(alpha), *cfg]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kernel == KERNEL_BANDED:
@@ -520,10 +540,9 @@ def matrix_work(op, needed: bool = False) -> tuple[int, int]:
     ``needed``, as the function needs them: K's non-zeros, each read
     once (4 bytes) and used once in each product.  Otherwise as the
     kernel stores and multiplies K: the band diagonals, padded to m
-    entries each and used once in each product; the compact forms'
-    values and indices; and every padded entry of each column that has
-    one, once in K^T y and once in K x.  Reads tensors back: not for the
-    solve path."""
+    entries each, and the compact forms' entries, each used once in
+    each product; the compact forms' values and indices.  Reads tensors
+    back: not for the solve path."""
     from .pdhg import BandedOp
     part = op.compact
     diags = op.diags if isinstance(op, BandedOp) else None
@@ -533,10 +552,7 @@ def matrix_work(op, needed: bool = False) -> tuple[int, int]:
             nnz += int((diags != 0).sum())
         return 4 * nnz, 2 * nnz
     band = 0 if diags is None else diags.numel()
-    cmax = part.col_rows.shape[1]
-    cols_used = int((part.col_vals[:, 0] != 0).sum()) if cmax else 0
-    return (4 * band + compact_bytes(part),
-            2 * band + 2 * cols_used * cmax)
+    return 4 * band + compact_bytes(part), 2 * (band + part.nnz)
 
 
 def chunk_cost(B: int, m: int, n: int, iters: int, k_bytes: int,

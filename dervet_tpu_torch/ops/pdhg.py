@@ -179,24 +179,25 @@ WIDE_MAX_BYTES = 8 * 1024 * 1024
 
 
 class CompactK(NamedTuple):
-    """Some rows of K (``r`` compact rows, ``nnz`` non-zeros) in the
-    compact forms the chunk kernels read; ``fused_chunk.compact_matvec``/
+    """Some rows of K (``r`` compact rows, ``nnz`` non-zeros) in the two
+    forms the chunk kernels read; ``fused_chunk.compact_matvec``/
     ``compact_rmatvec`` apply them with the kernels' indexing.  The
     banded op's wide rows, or every row of the dense op.
 
-    By column, for the ``nc`` columns from ``col_lo`` on (the span of the
-    columns that have entries): each column's entries padded to ``cmax``,
-    as K's row, the value, and the entry's position in row-major (CSR)
-    order; padding sits at the tail as (row 0, value 0, position nnz).
-    By row: ``indptr`` over those positions, with ``row_slot`` mapping
-    K's rows to compact rows.  K^T y reads a column's entries; K x writes
-    each entry's product at its position and sums a row's positions."""
+    By row (CSR, for K x): compact row k holds entries
+    ``indptr[k]:indptr[k + 1]`` of ``row_cols``/``row_vals``, and
+    ``row_slot`` maps K's row i to its compact row.  By column (CSC, for
+    K^T y), over the ``nc`` columns from ``col_lo`` on (the span of the
+    columns that have entries): column ``col_lo + c`` holds entries
+    ``col_ptr[c]:col_ptr[c + 1]`` of ``col_rows`` (K's row) and
+    ``col_vals``."""
     row_slot: torch.Tensor    # (m,) int32: compact row k of K's row i, or -1
-    indptr: torch.Tensor      # (r + 1,) int32: row k owns positions
-    #                           [indptr[k], indptr[k + 1])
-    col_rows: torch.Tensor    # (nc, cmax) int32
-    col_vals: torch.Tensor    # (nc, cmax)
-    col_pos: torch.Tensor     # (nc, cmax) int32
+    indptr: torch.Tensor      # (r + 1,) int32
+    row_cols: torch.Tensor    # (nnz,) int32
+    row_vals: torch.Tensor    # (nnz,)
+    col_ptr: torch.Tensor     # (nc + 1,) int32
+    col_rows: torch.Tensor    # (nnz,) int32
+    col_vals: torch.Tensor    # (nnz,)
     col_lo: int
     nnz: int
 
@@ -210,31 +211,23 @@ def compact_k(rows, M, m: int, device, dtype=torch.float32) -> CompactK:
     S.data = S.data.astype(torch.empty(0, dtype=dtype).numpy().dtype)
     S.eliminate_zeros()
     S.sort_indices()
-    nnz = S.nnz
-    k_of = np.repeat(np.arange(S.shape[0]), np.diff(S.indptr))
-    order = np.lexsort((k_of, S.indices))    # CSR positions column by column
-    cj = S.indices[order]
-    counts = np.bincount(S.indices, minlength=S.shape[1])
-    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-    slot = np.arange(nnz) - starts[cj]
-    lo = int(cj[0]) if nnz else 0
-    nc = int(cj[-1]) + 1 - lo if nnz else 0
-    cmax = int(counts.max()) if nnz else 0
-    col_rows = np.zeros((nc, cmax), np.int32)
-    col_vals = np.zeros((nc, cmax), S.data.dtype)
-    col_pos = np.full((nc, cmax), nnz, np.int32)
-    col_rows[cj - lo, slot] = rows[k_of[order]]
-    col_vals[cj - lo, slot] = S.data[order]
-    col_pos[cj - lo, slot] = order
+    C = S.tocsc()
+    C.sort_indices()
+    used = np.flatnonzero(np.diff(C.indptr))
+    lo, hi = (int(used[0]), int(used[-1]) + 1) if S.nnz else (0, 0)
     row_slot = np.full(m, -1, np.int32)
     row_slot[rows] = np.arange(S.shape[0])
 
     def i32(a):
         return torch.tensor(np.asarray(a, np.int32), device=device)
+
+    def val(a):
+        return torch.tensor(a, dtype=dtype, device=device)
     return CompactK(
-        row_slot=i32(row_slot), indptr=i32(S.indptr), col_rows=i32(col_rows),
-        col_vals=torch.tensor(col_vals, dtype=dtype, device=device),
-        col_pos=i32(col_pos), col_lo=lo, nnz=nnz)
+        row_slot=i32(row_slot), indptr=i32(S.indptr),
+        row_cols=i32(S.indices), row_vals=val(S.data),
+        col_ptr=i32(C.indptr[lo:hi + 1]), col_rows=i32(rows[C.indices]),
+        col_vals=val(C.data), col_lo=lo, nnz=S.nnz)
 
 
 class DenseOp:

@@ -12,7 +12,8 @@ CPU test files share (``test_torch_pdhg``, ``test_torch_fused_chunk``).
 Checks: one chunk of each kernel and step variant from a mid-solve state
 (B = 129, not a multiple of any block) agrees with the plain version per
 instance to 1e-5 of the vector's scale, and launches exactly once, on the
-small LPs and on the ICE + CHP monthly window; a full
+small LPs, on the ICE + CHP monthly window and on two shapes of the
+shared-state configuration (the DA + FR monthly window, a dense block); a full
 solve on the card gives the CPU solve's statuses, objectives within the
 solver's ``eps_rel`` and iteration counts within one check window.
 """
@@ -80,9 +81,14 @@ LPS = {
     "banded": lambda B: banded_lp(B),
     "banded_wide": lambda B: banded_lp(B, daily_rows=True),
 }
-# the kernels are also held at the largest window they take: the ICE +
-# CHP monthly window (2233 x 5952, seven bands, 768-thread blocks)
-KERNEL_LPS = {**LPS, "ice_chp": lambda B: benchlib.multi_der_window_lp()}
+# the kernels are also held at the largest window a register
+# configuration takes (the ICE + CHP monthly window, 2233 x 5952, seven
+# bands, 768-thread blocks) and at two shapes only the shared-state
+# configuration takes (the DA + FR monthly window, 3752 x 4464, ten
+# bands; a dense op with every entry of K non-zero, 200 x 600)
+KERNEL_LPS = {**LPS, "ice_chp": lambda B: benchlib.multi_der_window_lp(),
+              "da_fr": lambda B: benchlib.fr_window_lp(),
+              "dense_block": lambda B: benchlib.dense_block_lp()}
 
 
 def price_batch(lp, B, seed=1):

@@ -12,9 +12,9 @@ max |port - pallas| <= 1e-6 + 1e-5 max |pallas| (float32 sums in another
 order).
 
 Also: the row-index wide pair is ``P @ W``; ``supports`` declines what the
-kernels do not take (an ELL residual, a shape no thread configuration
-covers, a footprint over one block's shared memory, compact forms that
-do not fit beside it) and takes the multi-DER window; the cost model
+kernels do not take (an ELL residual, a footprint over one block's
+shared memory in every thread configuration, compact forms over the
+L2-resident budget) and takes the multi-DER window; the cost model
 counts K as the kernels store it; and device resolution refuses to fall
 back to the CPU.  The CUDA kernels themselves are held against these
 plain versions in test_torch_cuda.py.
@@ -203,29 +203,34 @@ def test_supports_declines_ell_residual_and_solves_plain():
 
 
 def test_supports_budget():
-    # a shape no thread configuration covers: declined
+    # one block's state over 227 KB in every configuration: declined
     big = pdhg.BandedOp(diags=torch.zeros(4, 3000), offsets=(0, 1, 3000,
                                                               6000),
                         m=3000, n=12000)
     assert fused_chunk.config_for(3000, 12000) is None
+    assert fused_chunk.smem_bytes(3000, 12000, shared=True) \
+        > fused_chunk.BLOCK_SMEM_BYTES
     assert not fused_chunk.supports(big, "vanilla")
-    # one block's shared state over 227 KB: declined
+    # 32 bands staged beside the state exceed one block's shared memory
+    # in the register configuration that covers the shape: the
+    # shared-state configuration takes it
     offs = tuple(range(32))
     wide = pdhg.BandedOp(diags=torch.zeros(32, 2304), offsets=offs,
                          m=2304, n=6144)
-    assert fused_chunk.config_for(2304, 6144) == (768, 8, 3, 1)
     assert fused_chunk.smem_bytes(2304, 6144, offs) \
         > fused_chunk.BLOCK_SMEM_BYTES
-    assert not fused_chunk.supports(wide, "vanilla")
+    assert fused_chunk.config_for(2304, 6144, offs) \
+        == fused_chunk.SHARED_CONFIG
+    assert fused_chunk.supports(wide, "vanilla")
     # too many bands
     many = pdhg.BandedOp(diags=torch.zeros(33, 100), offsets=range(33),
                          m=100, n=300)
     assert not fused_chunk.supports(many, "vanilla")
-    # a dense K whose compact forms do not fit one block's shared memory
-    dense = pdhg.DenseOp(Kh=torch.ones(200, 600))
-    assert fused_chunk.config_for(200, 600) == (256, 3, 1, 2)
-    assert fused_chunk.smem_bytes(200, 600, (), dense.compact) \
-        > fused_chunk.BLOCK_SMEM_BYTES
+    # a dense K whose compact forms exceed the L2-resident budget
+    dense = pdhg.DenseOp(Kh=torch.ones(1024, 3300))
+    assert fused_chunk.compact_bytes(dense.compact) > fused_chunk.MAX_K_BYTES
+    assert fused_chunk.smem_bytes(1024, 3300, shared=True) \
+        <= fused_chunk.BLOCK_SMEM_BYTES
     assert not fused_chunk.supports(dense, "vanilla")
     assert fused_chunk.supports(pdhg.DenseOp(Kh=torch.zeros(176, 672)),
                                 "halpern")
