@@ -13,8 +13,8 @@ Phases:
                sm_90a) and print each kernel instance's registers, stack
                and spills from ptxas; fails on a spill;
   2. kernels — each chunk kernel against its plain PyTorch version after
-               one chunk of 32 iterations, at every shape phases 3 and 4
-               run (at their batch, and at B = 1 and 129) and at five
+               one chunk of 32 iterations, at every shape phases 3, 4, 6
+               and 7 run (at their batch, and at B = 1 and 129) and at five
                more (all-equality rows without the wide-row pair; mixed
                equality/inequality rows on the dense op; the ICE + CHP
                monthly window, 2233 x 5952 with seven bands; and two
@@ -37,7 +37,23 @@ Phases:
   4. dense   — eight weekly-window cases (``n=168``) through the same entry,
                riding the dense kernel at shapes phase 2 checked;
   5. check   — the first 4 cases of phase 3 on exact HiGHS
-               (``backend="cpu"``): per-window objective rel < 1e-3.
+               (``backend="cpu"``): per-window objective rel < 1e-3;
+  6. microgrid — 64 cases x 12 monthly windows of Battery + PV + ICE +
+               CHP with DA and Reliability (``synthetic_sensitivity_cases(
+               64, multi_der=True, reliability=True)``) through the same
+               entry with the solver's CPU straggler rescue off
+               (``PDHGOptions(cpu_rescue_after=None)``): every window
+               certified, no CPU fallback, no instance rescued on the CPU,
+               every group on the banded kernel at a structure phase 2
+               checked; the outage walks ran on the card, and their
+               coverage, SOE profiles, load-coverage frame and min-SOE
+               schedules equal the same stream's on the CPU; the walks'
+               device time; the first 4 cases on exact HiGHS;
+  7. retail  — 64 cases x 12 monthly windows of Battery + PV billed on a
+               time-of-use tariff with demand charges (retailTimeShift +
+               DCM): the same checks, every group on the dense kernel, each
+               demand-charge group's op, configuration, shape and batch
+               logged; the first 4 cases on exact HiGHS.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -56,6 +72,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 
 # the card's published peaks (H100 SXM data sheet: HBM3 rate, fp32 rate
@@ -86,6 +103,11 @@ WARM_ITERS = 256
 MAIN_CASES = 128
 WEEKLY_CASES = 8
 OBJ_RTOL = 1e-3
+# phases 6 and 7: their synthetic_sensitivity_cases options and case counts
+RUNS = {"microgrid": (64, {"multi_der": True, "reliability": True}),
+        "retail": (64, {"retail": True})}
+# the outage walks on the card against the same functions on CPU tensors
+WALK_RTOL = 1e-5
 
 
 def log(*a):
@@ -159,6 +181,23 @@ def window_lps(n, daily_cycle_limit):
             out[ctx.T] = scen.build_window_lp(ctx, scen._annuity_scalar,
                                               scen._requirements)
     return out
+
+
+def run_shapes(kind):
+    """[(name, lp, batch, structure key)]: one window LP per structure
+    group of run ``kind`` (``RUNS``), with the group's batch (months of
+    that structure x cases) and its key (``MicrogridScenario.
+    _structure_key``): the shapes its solve gives the kernels."""
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.scenario.scenario import MicrogridScenario
+    n_cases, kw = RUNS[kind]
+    lps = benchlib.window_lps(benchlib.synthetic_case(**kw))
+    groups = {}
+    for month, lp in enumerate(lps, start=1):
+        groups.setdefault(MicrogridScenario._structure_key(lp),
+                          []).append((month, lp))
+    return [(f"{kind} months {[m for m, _ in g]}", g[0][1], len(g) * n_cases,
+             key) for key, g in groups.items()]
 
 
 def chunk_inputs(solver, B, seed, warm_iters=WARM_ITERS):
@@ -319,12 +358,13 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, name):
+def device_ms(fn, reps, name=None):
     """Mean device time of one launch of the kernel whose name contains
     ``name`` over ``reps`` calls of ``fn``, from torch.profiler's CUDA
     activity (the kernel alone, without the wrapper's host work, which
-    a stream timer also counts when the kernel is shorter than it);
-    None when the profiler records no device time."""
+    a stream timer also counts when the kernel is shorter than it); with
+    ``name`` None, the device time of every kernel and copy a call of
+    ``fn`` runs.  None when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -335,18 +375,21 @@ def device_ms(fn, reps, name):
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for evt in prof.key_averages():
-        if name in evt.key:
+        if name is None or name in evt.key:
             dev_us = getattr(evt, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(evt, "self_cuda_time_total", 0.0)
             total += dev_us
             count += evt.count
+    if name is None:
+        count = reps
     return total / count / 1e3 if count and total else None
 
 
 def kernel_phase():
     """Returns ({kernel name: record} for the kernels JSON line,
-    {kernel name: set of (m, n) checked})."""
+    {kernel name: set of (m, n) checked}, {structure key of a phase 6 or
+    7 group: what phase 2 found for that structure})."""
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import (BandedOp, CompiledLPSolver,
@@ -376,8 +419,13 @@ def kernel_phase():
         ("banded DA+FR", benchlib.fr_window_lp(), MAIN_CASES, False),
         ("dense block", benchlib.dense_block_lp(), MAIN_CASES, False),
     ]
+    shapes = [(*s, None) for s in shapes]
+    # every structure group of phases 6 and 7 at its batch
+    shapes += [(name, lp, b, False, key) for kind in RUNS
+               for name, lp, b, key in run_shapes(kind)]
     records, checked, failures = {}, {k: set() for k in fc.KERNELS}, []
-    for name, lp, b_main, timed in shapes:
+    found = {}
+    for name, lp, b_main, timed, structure in shapes:
         solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
         op = solver.op
         kname = fc.kernel_for(op)
@@ -386,16 +434,16 @@ def kernel_phase():
         offsets = op.offsets if banded else ()
         nnz = fc.matrix_work(op, needed=True)[1] // 2
         per_col = torch.diff(part.col_ptr)
+        config = fc.config_for(lp.m, lp.n, offsets, part, fc.REFLECTED)
         log(f"[kernels] {name}: m={lp.m} n={lp.n} n_eq={lp.n_eq} "
-            f"{kname} nnz(K)={nnz} config="
-            f"{fc.config_for(lp.m, lp.n, offsets, part, fc.REFLECTED)} "
+            f"{kname} nnz(K)={nnz} config={config} "
             f"compact rows={part.indptr.shape[0] - 1} "
             f"entries={part.nnz} most a column="
             f"{int(per_col.max()) if per_col.numel() else 0}"
             + (f" nb={len(op.offsets)}" if banded else ""))
         check(fc.supports(op, fc.REFLECTED), f"{name}: kernel declines")
         checked[kname].add((lp.m, lp.n))
-        worst_abs, worst_rand = 0.0, (0.0, 0.0)
+        worst_abs, worst_rel, worst_rand = 0.0, 0.0, (0.0, 0.0)
         for variant in fc.VARIANTS:
             alpha = ALPHA[variant]
             # from the solver's own mid-solve state
@@ -414,6 +462,7 @@ def kernel_phase():
                     failures.append(f"{name} {variant} B={B}: rel "
                                     f"{rel_err:.3e}")
                 worst_abs = max(worst_abs, abs_err)
+                worst_rel = max(worst_rel, rel_err)
             # from an arbitrary state, against the float64 plain run
             inputs = random_inputs(solver, 129, seed=3)
             kern = kernel_chunk(solver, inputs, variant, alpha)
@@ -456,15 +505,20 @@ def kernel_phase():
             f"work needed {need[0]:.4f} ms by {need[1]} ({need[2]} B, "
             f"{need[3]} fp32 ops); bound as computed {stored[0]:.4f} ms by "
             f"{stored[1]} ({stored[2]} B, {stored[3]} fp32 ops)")
+        if structure is not None:
+            found[structure] = {"structure": name, "op": type(op).__name__,
+                                "config": config, "ms": ms,
+                                "bound_ms": need[0], "B": b_main}
         rec = records.setdefault(kname, {
             "name": kname, "route": "cuda",
             "source": "dervet_tpu_torch/ops/csrc/fused_chunk.cu",
             "replaces": ("dervet_tpu/ops/pallas_chunk.py:246"
                          if kname == fc.KERNEL_BANDED
                          else "dervet_tpu/ops/pallas_chunk.py:105"),
-            "launches": 0, "max_abs_err": 0.0,
+            "launches": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
             "random_state_gap": {"kernel": 0.0, "plain_f32_runs": 0.0}})
         rec["max_abs_err"] = max(rec["max_abs_err"], worst_abs)
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst_rel)
         rs = rec["random_state_gap"]
         rs["kernel"] = max(rs["kernel"], worst_rand[0])
         rs["plain_f32_runs"] = max(rs["plain_f32_runs"], worst_rand[1])
@@ -480,7 +534,7 @@ def kernel_phase():
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
-    return records, checked
+    return records, checked, found
 
 
 def time_kernels(root, reps=20):
@@ -513,10 +567,11 @@ def time_kernels(root, reps=20):
 # phases 3-5: the product path
 # ---------------------------------------------------------------------------
 
-def solve_cases(cases, backend):
+def solve_cases(cases, backend, solver_opts=None):
     from dervet_tpu_torch.api import DERVET
     t0 = time.perf_counter()
-    res = DERVET.from_cases(cases).solve(backend=backend)
+    res = DERVET.from_cases(cases).solve(backend=backend,
+                                         solver_opts=solver_opts)
     return res, time.perf_counter() - t0
 
 
@@ -603,6 +658,8 @@ def main_phases(records, checked, profile=False):
     check_ledger(res, fc.KERNEL_BANDED, checked[fc.KERNEL_BANDED], "main")
     check(launches[fc.KERNEL_BANDED] > 0, "banded kernel never launched")
     records[fc.KERNEL_BANDED]["launches"] = launches[fc.KERNEL_BANDED]
+    for name, n in launches.items():
+        records[name].setdefault("launches_by_run", {})["main"] = n
     torch_obj = {k: inst.objective_values["Total Objective"]
                  for k, inst in res.instances.items()}
     for k, s in torch_obj.items():
@@ -622,10 +679,17 @@ def main_phases(records, checked, profile=False):
     check_ledger(res_w, fc.KERNEL_DENSE, checked[fc.KERNEL_DENSE], "dense")
     check(launches_w[fc.KERNEL_DENSE] > 0, "dense kernel never launched")
     records[fc.KERNEL_DENSE]["launches"] = launches_w[fc.KERNEL_DENSE]
+    for name, n in launches_w.items():
+        records[name].setdefault("launches_by_run", {})["dense"] = n
 
     # 5. cross-check against exact HiGHS on the first 4 cases
-    ref_cases = benchlib.synthetic_sensitivity_cases(
-        MAIN_CASES, daily_cycle_limit=1)[:4]
+    check_against_highs(benchlib.synthetic_sensitivity_cases(
+        MAIN_CASES, daily_cycle_limit=1)[:4], torch_obj, "check")
+
+
+def check_against_highs(ref_cases, torch_obj, what):
+    """``ref_cases`` on exact HiGHS: each window's objective within
+    OBJ_RTOL of the card's (``torch_obj``: case key -> objectives)."""
     res_c, wall_c = solve_cases(ref_cases, "cpu")
     worst = 0.0
     for k, inst in res_c.instances.items():
@@ -633,9 +697,187 @@ def main_phases(records, checked, profile=False):
         got = torch_obj[k].loc[ref.index]
         rel = ((got - ref).abs() / ref.abs().clip(lower=1.0)).max()
         worst = max(worst, float(rel))
-    log(f"[check] 4 cases x 12 windows vs HiGHS ({wall_c:.2f} s): max "
-        f"per-window objective rel {worst:.3e} (limit {OBJ_RTOL})")
-    check(worst < OBJ_RTOL, f"objective rel {worst} vs HiGHS")
+    log(f"[{what}] {len(ref_cases)} cases x 12 windows vs HiGHS "
+        f"({wall_c:.2f} s): max per-window objective rel {worst:.3e} "
+        f"(limit {OBJ_RTOL})")
+    check(worst < OBJ_RTOL, f"{what}: objective rel {worst} vs HiGHS")
+
+
+def walk_phase(res, calls, what):
+    """The outage walks of the microgrid run: every call ran on the card
+    (``calls``: (name, device type, thread) recorded during the run), and
+    for the first 4 cases the stream's own walks — the load-coverage walk,
+    the load-coverage frame, the min-SOE schedule and, with
+    ``min_soe_exact``, the exact recursion's — equal what the same
+    stream computes with its device set to the CPU; then each walk's
+    device time at the run's size."""
+    import numpy as np
+    import torch
+    devices = sorted({d for _, d, _ in calls})
+    threads = sorted({t.split("_")[0] for _, _, t in calls})
+    log(f"[{what}] outage walks: {len(calls)} calls on {devices} from "
+        f"threads {threads}")
+    check(calls and devices == ["cuda"],
+          f"{what}: outage walks ran on {devices}")
+    check(any(t.startswith("dervet-post") for t in threads),
+          f"{what}: no walk ran from the post-processing pool")
+
+    def walk_gap(a, b):
+        """max |a - b| / max(|b|, 1) over the finite entries of ``b``,
+        which must be where ``a``'s are."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        fin = np.isfinite(b)
+        check(np.array_equal(fin, np.isfinite(a)), "inf in other places")
+        if not fin.any():
+            return 0.0
+        return float((np.abs(a[fin] - b[fin])
+                      / np.maximum(np.abs(b[fin]), 1.0)).max())
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    worst = {"coverage_diff": 0, "soe": 0.0, "min_soe": 0.0,
+             "min_soe_exact": 0.0}
+    timing = {}
+    for key in sorted(res.instances)[:4]:
+        inst = res.instances[key]
+        s, ts = inst.scenario, inst.time_series_data
+        rel = s.streams["Reliability"]
+        check(rel.device == cuda, f"{what}: case {key} walked on "
+                                  f"{rel.device}")
+        mix = rel._der_mix(s.ders)
+        L = int(np.round(rel.max_outage_duration / rel.dt))
+        init = ts["Aggregated State of Energy (kWh)"].to_numpy()
+        card_lcp = inst.drill_down_dict["load_coverage_prob"]
+        card_soe = rel.min_soe_df["soe"].to_numpy()
+        saved = (rel.min_soe_df, rel.soe_profiles, rel.outage_soe_profile,
+                 rel.min_soe_exact)
+
+        def schedule(exact):
+            rel.min_soe_exact = exact
+            return rel.min_soe_schedule(s.ders, s.index)["soe"].to_numpy()
+
+        walks = {
+            f"LCPC walk L={L}": lambda: rel._walk(mix, init, L),
+            f"min-SOE schedule L={rel.coverage_steps}":
+                lambda: schedule(False),
+            f"exact min-SOE schedule L={rel.coverage_steps}":
+                lambda: schedule(True)}
+        lcpc, walk, exact = walks.values()
+
+        def on(dev, fn):
+            rel.device = dev
+            try:
+                return fn()
+            finally:
+                rel.device = cuda
+
+        try:
+            (cov_d, prof_d), (cov_h, prof_h) = (on(d, lcpc)
+                                                for d in (cuda, cpu))
+            diff = int((cov_d != cov_h).sum())
+            check(diff == 0, f"{what}: case {key}: coverage differs at "
+                             f"{diff} starts")
+            worst["coverage_diff"] = max(worst["coverage_diff"], diff)
+            worst["soe"] = max(worst["soe"], walk_gap(prof_d, prof_h))
+            check(on(cpu, lambda: rel.load_coverage_probability(
+                s.ders, ts)).equals(card_lcp),
+                f"{what}: case {key}: load coverage differs on CPU")
+            worst["min_soe"] = max(worst["min_soe"],
+                                   walk_gap(card_soe, on(cpu, walk)))
+            worst["min_soe_exact"] = max(worst["min_soe_exact"], walk_gap(
+                *(on(d, exact) for d in (cuda, cpu))))
+            if not timing:
+                # device time of each walk at the run's size (T = 8760
+                # starts); the call time counts the copy to the host
+                for name, fn in walks.items():
+                    dev_ms = device_ms(fn, 10)
+                    check(dev_ms is not None, f"the profiler recorded no "
+                                              f"device time for the {name}")
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        fn()
+                    timing[name] = {"device_ms": dev_ms, "call_ms": (
+                        time.perf_counter() - t0) * 100}
+        finally:
+            (rel.min_soe_df, rel.soe_profiles, rel.outage_soe_profile,
+             rel.min_soe_exact) = saved
+    log(f"[{what}] walks on the card vs on the CPU, 4 cases: {worst} (limit "
+        f"{WALK_RTOL} relative)")
+    check(max(worst["soe"], worst["min_soe"], worst["min_soe_exact"])
+          <= WALK_RTOL, f"{what}: walks differ on the card: {worst}")
+    log(f"[{what}] walk times a call, T={len(init)} starts: "
+        f"{json.dumps(timing)}")
+
+
+def run_phase(kind, records, checked, found):
+    """Phases 6 and 7: ``RUNS[kind]`` through ``DERVET.solve`` on the
+    card with the solver's CPU straggler rescue off, its checks, and the
+    first 4 cases on exact HiGHS."""
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.models.streams import reliability as relmod
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    from dervet_tpu_torch.scenario import scenario as scen
+    n_cases, kw = RUNS[kind]
+    kernel = fc.KERNEL_BANDED if kind == "microgrid" else fc.KERNEL_DENSE
+    cases = benchlib.synthetic_sensitivity_cases(n_cases, **kw)
+    # record where every outage walk of the run computes, and from which
+    # thread (the dispatch thread before the solves, the post pool after)
+    walk, calls = relmod.simulate_all_outages, []
+
+    def recorded_walk(*a, **k):
+        out = walk(*a, **k)
+        calls.append(("walk", out[0].device.type,
+                      threading.current_thread().name))
+        return out
+
+    # tag each group's ledger entries with its structure as phase 2 named
+    # it (groups of one shape may differ in structure)
+    resolve = scen.resolve_group
+
+    def tagged_resolve(items, *a, ledger_tags=None, **k):
+        key = scen.MicrogridScenario._structure_key(items[0][2])
+        name = found[key]["structure"] if key in found else "unchecked"
+        return resolve(items, *a, ledger_tags={**(ledger_tags or {}),
+                                               "structure": name}, **k)
+
+    relmod.simulate_all_outages = recorded_walk
+    scen.resolve_group = tagged_resolve
+    try:
+        fc.reset_launch_counts()
+        # no CPU work inside the solve: the straggler rescue, which hands
+        # the last few unconverged instances to HiGHS, is off
+        res, wall = solve_cases(cases, "torch",
+                                PDHGOptions(cpu_rescue_after=None))
+        launches = dict(fc.LAUNCHES)
+    finally:
+        relmod.simulate_all_outages = walk
+        scen.resolve_group = resolve
+    log(f"[{kind}] {n_cases} cases x 12 months: {wall:.2f} s wall, "
+        f"launches {launches}")
+    check_certified(res, n_cases * 12, kind)
+    check_ledger(res, kernel, checked[kernel], kind)
+    rescued = res.solve_ledger["totals"].get("cpu_rescued", 0)
+    check(rescued == 0, f"{kind}: {rescued} instances solved on the CPU")
+    check(launches[kernel] > 0, f"{kind}: {kernel} never launched")
+    for name, n in launches.items():
+        records[name].setdefault("launches_by_run", {})[kind] = n
+    names = {f["structure"]: f for f in found.values()}
+    for g in res.solve_ledger["groups"]:
+        if g.get("backend") == "torch":
+            check(g.get("structure") in names, f"{kind}: group m={g['m']} "
+                  f"n={g['n']} has a structure phase 2 did not check")
+            log(f"[{kind}]   group {g['structure']} ({g.get('rung')}) B="
+                f"{g['batch']} launches={g['kernel_launches']}: "
+                f"{json.dumps(names[g['structure']])}")
+    if kind == "microgrid":
+        walk_phase(res, calls, kind)
+    torch_obj = {k: inst.objective_values["Total Objective"]
+                 for k, inst in res.instances.items()}
+    for k, obj in torch_obj.items():
+        check(obj.notna().all() and len(obj) == 12, f"case {k}: {obj}")
+    check_against_highs(
+        benchlib.synthetic_sensitivity_cases(n_cases, **kw)[:4], torch_obj,
+        f"{kind} check")
 
 
 def main() -> int:
@@ -682,11 +924,15 @@ def main() -> int:
     spilled = [r for r in report if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"kernel instances spill registers: {spilled}")
     t0 = time.perf_counter()
-    records, checked = kernel_phase()
+    records, checked, found = kernel_phase()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_phases(records, checked, profile=args.profile)
     log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
+    for kind in RUNS:
+        t0 = time.perf_counter()
+        run_phase(kind, records, checked, found)
+        log(f"[{kind}] done in {time.perf_counter() - t0:.1f} s")
     card = card_line()
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

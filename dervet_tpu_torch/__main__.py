@@ -1,0 +1,85 @@
+"""``python -m dervet_tpu_torch`` console entry (mirrors reference
+run_DERVET.py:73-92 and ``python -m dervet_tpu``'s solve path).
+
+    python -m dervet_tpu_torch PARAMS.csv [--backend auto|torch|cpu]
+                                          [--device cuda:0] [--out DIR]
+
+The JAX package's other subcommands (``serve``, ``design``,
+``portfolio``, ``montecarlo``, ``fleet``, ``status``, ``trace``) belong
+to modules this package does not carry yet: they exit with status 2 and
+say so."""
+from __future__ import annotations
+
+import argparse
+import sys
+
+# subcommands of ``python -m dervet_tpu`` whose modules are not ported
+UNPORTED_SUBCOMMANDS = ("serve", "design", "portfolio", "montecarlo",
+                        "fleet", "status", "trace")
+EXIT_UNPORTED = 2
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
+        print(f"dervet_tpu_torch: the {argv[0]!r} subcommand is not ported "
+              "yet; run it with python -m dervet_tpu", file=sys.stderr)
+        raise SystemExit(EXIT_UNPORTED)
+
+    from .api import DERVET
+
+    parser = argparse.ArgumentParser(
+        prog="dervet_tpu_torch",
+        description="GPU DER valuation: dispatch optimization, sizing, "
+                    "reliability, and cost-benefit analysis")
+    parser.add_argument("parameters_filename",
+                        help="model parameters CSV/JSON file")
+    parser.add_argument("-v", "--verbose", action="store_true")
+    parser.add_argument("--backend", default="auto",
+                        choices=["auto", "torch", "cpu"],
+                        help="dispatch solver backend (auto = torch for "
+                             "large dispatches, cpu below the measured "
+                             "crossover; torch = batched PDHG on the GPU; "
+                             "cpu = scipy HiGHS cross-validation path)")
+    parser.add_argument("--device", default=None,
+                        help="device of the torch backend and of "
+                             "Reliability's outage walks (default: the "
+                             "first GPU; 'cpu' runs the plain PyTorch "
+                             "path on the CPU)")
+    parser.add_argument("--base-path", default=None,
+                        help="root for relative referenced-data paths "
+                             "(default: the parameters file's directory)")
+    parser.add_argument("--out", default=None,
+                        help="override results output directory")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="directory for per-window solve checkpoints "
+                             "(resume an interrupted run from here)")
+    # reference-CLI compatibility (run_DERVET.py:53-54): the reference
+    # prompts for input unless --gitlab-ci is given; this CLI never
+    # prompts, so the flag is accepted as a no-op
+    parser.add_argument("--gitlab-ci", action="store_true",
+                        help="accepted for reference-CLI compatibility "
+                             "(this CLI is always non-interactive)")
+    args = parser.parse_args(argv)
+
+    from .utils.errors import PreemptedError
+    from .utils.supervisor import EXIT_PREEMPTED
+
+    case = DERVET(args.parameters_filename, verbose=args.verbose,
+                  base_path=args.base_path)
+    try:
+        results = case.solve(backend=args.backend,
+                             checkpoint_dir=args.checkpoint_dir,
+                             device=args.device)
+    except PreemptedError as e:
+        # distinct exit code (75, EX_TEMPFAIL) so job schedulers can tell
+        # "requeue me" from a real failure; checkpoints + run_manifest.json
+        # were already flushed by the supervisor before this propagated
+        print(f"preempted: {e}", file=sys.stderr)
+        raise SystemExit(EXIT_PREEMPTED)
+    results.save_as_csv(args.out)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,15 @@
-"""Synthetic Battery+PV+DA scenarios and the solve-ledger schema.
+"""Synthetic DER scenarios and the solve-ledger schema.
 
 Builds a fully in-memory :class:`~.io.params.CaseParams` (no CSV files)
 that runs through the real assembly path — DER constructors, POI, value
 streams, window partitioning, LP builder — so tests and ``chip_smoke.py``
 exercise exactly the code a user's case runs.  The same builders as the
-JAX package's ``benchlib`` (same seeds, same data), plus a
-``daily_cycle_limit`` option that adds the battery's per-day cycle rows
-(the low-rank wide-row pair of a real monthly window).
+JAX package's ``benchlib`` (same seeds, same data, the same ICE + CHP
+microgrid), plus options that package's builders lack: the battery's
+per-day cycle rows (``daily_cycle_limit``, the low-rank wide-row pair of
+a real monthly window), a retail time-of-use tariff with demand charges
+(``retail``), and the Reliability stream on a critical load with a
+load-shed curve (``reliability``).
 """
 from __future__ import annotations
 
@@ -45,12 +48,53 @@ def synthetic_timeseries(year: int = 2017, dt: float = 1.0,
     }, index=index)
 
 
+def synthetic_tariff() -> pd.DataFrame:
+    """A time-of-use retail tariff in the reference's ``tariff.csv``
+    layout (hour-ending times, inclusive): an all-hours energy rate, an
+    on-peak energy adder on weekdays 12-20 h, a monthly all-hours demand
+    charge and an on-peak demand charge on the same hours."""
+    rows = [(1, 24, 2, 0.08, "energy", "all hours"),
+            (13, 20, 1, 0.06, "energy", "on-peak adder"),
+            (1, 24, 2, 10.0, "demand", "monthly peak"),
+            (13, 20, 1, 15.0, "demand", "on-peak peak")]
+    return pd.DataFrame({
+        "Billing Period": np.arange(1, len(rows) + 1),
+        "Start Month": 1, "End Month": 12,
+        "Start Time": [r[0] for r in rows], "End Time": [r[1] for r in rows],
+        "Excluding Start Time": np.nan, "Excluding End Time": np.nan,
+        "Weekday?": [r[2] for r in rows], "Value": [r[3] for r in rows],
+        "Charge": [r[4] for r in rows],
+        "Name (optional)": [r[5] for r in rows],
+    }).set_index("Billing Period")
+
+
+def load_shed_curve(hours: int = 24) -> pd.DataFrame:
+    """Percent of the critical load an outage must serve, by outage hour:
+    all of it for 4 h, then 10 points less every 4 h down to 50%."""
+    h = np.arange(1, hours + 1)
+    return pd.DataFrame({"Outage Length (hrs)": h,
+                         "Load Shed (%)": np.maximum(
+                             100.0 - 10.0 * ((h - 1) // 4), 50.0)})
+
+
 def synthetic_case(year: int = 2017, n="month", dt: float = 1.0,
                    battery_kw: float = 2000.0, battery_kwh: float = 8000.0,
                    pv_kw: float = 3000.0, seed: int = 0,
-                   daily_cycle_limit: float = 0.0) -> CaseParams:
-    """Battery+PV+DA north-star case; ``daily_cycle_limit`` > 0 caps the
-    battery's discharge energy per day at that many full cycles."""
+                   daily_cycle_limit: float = 0.0, multi_der: bool = False,
+                   retail: bool = False, reliability: bool = False,
+                   load_shed: bool = True) -> CaseParams:
+    """Battery+PV+DA north-star case.
+
+    * ``daily_cycle_limit`` > 0 caps the battery's discharge energy per
+      day at that many full cycles;
+    * ``multi_der`` adds the JAX package's ICE (2 x 1 MW) and CHP (800 kW)
+      with the site's hot-water load (its ``synthetic_case(multi_der=
+      True)``, key for key);
+    * ``retail`` bills the site on :func:`synthetic_tariff` with
+      retailTimeShift + DCM in place of DA;
+    * ``reliability`` adds a critical load (50% of the site load) and the
+      Reliability stream: 4 h target, outages walked up to 12 h from a
+      full battery, with :func:`load_shed_curve` when ``load_shed``."""
     ts = synthetic_timeseries(year, dt, seed)
     scenario = {"dt": dt, "n": n, "opt_years": [year], "start_year": year,
                 "end_year": year, "incl_site_load": True}
@@ -62,30 +106,65 @@ def synthetic_case(year: int = 2017, n="month", dt: float = 1.0,
         battery["daily_cycle_limit"] = float(daily_cycle_limit)
     pv = {"name": "bench_pv", "rated_capacity": pv_kw, "curtail": True,
           "ccost_kW": 1000.0}
+    ders = [("Battery", "1", battery), ("PV", "1", pv)]
+    if multi_der:
+        ders.append(("ICE", "1", {
+            "name": "bench_ice", "rated_capacity": 1000.0, "n": 2,
+            "efficiency": 11.0, "fuel_cost": 2.5, "variable_om_cost": 0.004,
+            "fixed_om_cost": 10.0, "ccost_kW": 600.0}))
+        ders.append(("CHP", "1", {
+            "name": "bench_chp", "rated_capacity": 800.0, "n": 1,
+            # kW electric per BTU/hr of recovered heat (reference unit
+            # convention)
+            "electric_heat_ratio": 0.0015, "fuel_cost": 2.0,
+            "variable_om_cost": 0.003, "ccost_kW": 900.0}))
+        scenario["incl_thermal_load"] = True
+        rng = np.random.default_rng(seed + 1)
+        hours = ts.index.hour.to_numpy()
+        # within the CHP's recoverable heat: 800 kW / 0.0015 = 533 kBTU/hr
+        ts["Site Hot Water Thermal Load (BTU/hr)"] = 1e5 * (
+            2.0 + np.sin(2 * np.pi * (hours - 6) / 24)
+            + 0.2 * rng.standard_normal(len(ts)))
+    streams = {"DA": {"growth": 0.0}}
+    datasets = Datasets(time_series=ts)
+    if retail:
+        streams = {"retailTimeShift": {"growth": 0.0},
+                   "DCM": {"growth": 0.0}}
+        datasets.tariff = synthetic_tariff()
+    if reliability:
+        ts["Critical Load (kW)"] = 0.5 * ts["Site Load (kW)"]
+        streams["Reliability"] = {
+            "target": 4.0, "max_outage_duration": 12.0,
+            "post_facto_only": 0, "post_facto_initial_soc": 100.0,
+            "n-2": 0, "load_shed_percentage": int(load_shed)}
+        if load_shed:
+            datasets.load_shed = load_shed_curve()
     return CaseParams(
         case_id=0, scenario=scenario,
         finance={"npv_discount_rate": 7.0, "inflation_rate": 3.0},
-        results={}, ders=[("Battery", "1", battery), ("PV", "1", pv)],
-        streams={"DA": {"growth": 0.0}},
-        datasets=Datasets(time_series=ts),
-    )
+        results={}, ders=ders, streams=streams, datasets=datasets)
 
 
 def synthetic_sensitivity_cases(n_cases: int, year: int = 2017,
                                 n="month", dt: float = 1.0,
                                 months: int = 0, seed: int = 0,
-                                daily_cycle_limit: float = 0.0
+                                daily_cycle_limit: float = 0.0,
+                                multi_der: bool = False,
+                                retail: bool = False,
+                                reliability: bool = False
                                 ) -> List[CaseParams]:
-    """A synthetic sensitivity fan-out: ``n_cases`` copies of the
-    Battery+PV+DA case sweeping the battery energy rating (a bounds-only
-    sweep, like the reference's Sensitivity-Parameters fan-out).
-    ``months`` > 0 trims the horizon to the first N calendar months
-    (``allow_partial_year``)."""
+    """A synthetic sensitivity fan-out: ``n_cases`` copies of
+    :func:`synthetic_case` sweeping the battery energy rating (a
+    bounds-only sweep, like the reference's Sensitivity-Parameters
+    fan-out).  ``months`` > 0 trims the horizon to the first N calendar
+    months (``allow_partial_year``)."""
     import dataclasses
     out = []
     for i in range(n_cases):
         c = synthetic_case(year=year, n=n, dt=dt, seed=seed,
-                           daily_cycle_limit=daily_cycle_limit)
+                           daily_cycle_limit=daily_cycle_limit,
+                           multi_der=multi_der, retail=retail,
+                           reliability=reliability)
         c = dataclasses.replace(c, case_id=i)
         for tag, _, keys in c.ders:
             if tag == "Battery":
@@ -99,52 +178,26 @@ def synthetic_sensitivity_cases(n_cases: int, year: int = 2017,
     return out
 
 
-def multi_der_window_lp(seed: int = 0):
-    """The first monthly window LP (2233 x 5952) of the JAX package's
-    ICE + CHP microgrid case (``synthetic_case(multi_der=True)`` there):
-    this package's Battery + PV window plus an ICE (2 x 1 MW, fuel 2.5
-    $/MMBtu at heat rate 11, O&M 0.004), a CHP (800 kW, O&M 0.003, 0.0015
-    kW electric per BTU/hr of steam or hot water recovered) and the site's
-    hot-water load, assembled here with ``LPBuilder`` because the ICE and
-    CHP models are not ported yet.  The shape of the largest window the
-    chunk kernels take (seven bands)."""
-    from .ops.lp import LPBuilder
+def window_lps(case):
+    """Every window LP of ``case``, in order, as a run assembles them
+    (the CPU backend's preparation)."""
     from .scenario.scenario import MicrogridScenario
-    case = synthetic_case(seed=seed)
     scen = MicrogridScenario(case)
     scen.prepare_dispatch("cpu")
-    ctx = scen.windows[0]
-    base = scen.build_window_lp(ctx, scen._annuity_scalar,
-                                scen._requirements)
-    T = ctx.T
-    b = LPBuilder()
-    refs = {name: b.var(name, r.size, base.l[r.sl], base.u[r.sl])
-            for name, r in base.var_refs.items()}
-    for name, r in base.var_refs.items():
-        b.add_cost(refs[name], base.c[r.sl])
-    price = base.c[base.var_refs["Battery-1/ch"].sl]
-    ice = b.var("ICE-1/elec", T, 0.0, 2000.0)
-    b.add_cost(ice, 2.5 * 11.0 + 0.004 - price)
-    chp = b.var("CHP-1/elec", T, 0.0, 800.0)
-    b.add_cost(chp, 0.003 - price)
-    steam = b.var("CHP-1/steam", T, 0.0, np.inf)
-    hot = b.var("CHP-1/hotwater", T, 0.0, np.inf)
-    K = base.K.tocsr()
-    for name, spans in base.row_groups.items():
-        for r0, r1 in spans:
-            b.add_rows(name, [(refs[v], K[r0:r1, r.sl])
-                              for v, r in base.var_refs.items()],
-                       "eq", base.q[r0:r1])
-    b.add_rows("CHP-1/heat_recovery", [(chp, -1.0), (steam, 0.0015),
-                                       (hot, 0.0015)], "eq", 0.0)
-    # the hot-water load of the JAX package's case, year-long, sliced
-    ts = case.datasets.time_series
-    rng = np.random.default_rng(seed + 1)
-    hours = ts.index.hour.to_numpy()
-    load = 1e5 * (2.0 + np.sin(2 * np.pi * (hours - 6) / 24)
-                  + 0.2 * rng.standard_normal(len(ts)))
-    b.add_rows("thermal_hotwater", [(hot, 1.0)], "ge", load[:T])
-    return b.build()
+    return [scen.build_window_lp(ctx, scen._annuity_scalar,
+                                 scen._requirements)
+            for ctx in scen.windows]
+
+
+def multi_der_window_lp(seed: int = 0):
+    """The first monthly window LP (2233 x 5952) of the ICE + CHP
+    microgrid case (``synthetic_case(multi_der=True)``, the JAX package's
+    case key for key): the Battery + PV window plus an ICE (2 x 1 MW,
+    fuel 2.5 $/MMBtu at heat rate 11, O&M 0.004), a CHP (800 kW, O&M
+    0.003, 0.0015 kW electric per BTU/hr of steam or hot water recovered)
+    and the site's hot-water load.  The shape of the largest window the
+    chunk kernels take in a register configuration (seven bands)."""
+    return window_lps(synthetic_case(seed=seed, multi_der=True))[0]
 
 
 def fr_window_lp(seed: int = 0):
@@ -156,7 +209,6 @@ def fr_window_lp(seed: int = 0):
     market rows make it the shape the chunk kernels take only in their
     shared-state configuration."""
     import dataclasses
-    from .scenario.scenario import MicrogridScenario
     case = synthetic_case(seed=seed, daily_cycle_limit=1)
     ts = case.datasets.time_series.copy()
     rng = np.random.default_rng(seed + 3)
@@ -167,10 +219,7 @@ def fr_window_lp(seed: int = 0):
                        "FR": {"growth": 0.0, "duration": 0.5, "eou": 0.3,
                               "eod": 0.3}},
         datasets=dataclasses.replace(case.datasets, time_series=ts))
-    scen = MicrogridScenario(case)
-    scen.prepare_dispatch("cpu")
-    return scen.build_window_lp(scen.windows[0], scen._annuity_scalar,
-                                scen._requirements)
+    return window_lps(case)[0]
 
 
 def dense_block_lp(m: int = 200, n: int = 600, seed: int = 0):

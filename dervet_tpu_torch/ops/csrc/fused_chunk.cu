@@ -102,6 +102,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace {
 
 constexpr int kMaxBands = 32;
@@ -448,16 +452,41 @@ __global__ void __launch_bounds__(T, MINB)
   body<V, T, CPT, RPT>(a);
 }
 
+// A function's attributes are shared by every host thread, and groups of
+// other shapes launch the same instance from other threads at once: the
+// dynamic shared-memory limit is set once per instance and device, to the
+// most a block may opt into, so that no launch lowers it under another's.
+template <typename KernelT>
+cudaError_t set_attributes_once(KernelT kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({(const void*)kernel, dev})) return cudaSuccess;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+  // shared memory before L1, so that the blocks the registers allow fit
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.insert({(const void*)kernel, dev});
+  return err;
+}
+
 template <typename KernelT>
 cudaError_t launch(KernelT kernel, int threads, int B, size_t smem,
                    cudaStream_t st, const ChunkArgs& a) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // shared memory before L1, so that the blocks the registers allow fit
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = set_attributes_once(kernel);
   if (err != cudaSuccess) return err;
   kernel<<<B, threads, smem, st>>>(a);
   return cudaGetLastError();

@@ -29,38 +29,46 @@ from ..models.der.base import DER
 from ..models.der.ess import Battery
 from ..models.streams.base import ValueStream
 from ..models.streams.da import DAEnergyTimeShift
-from ..models.streams import UNPORTED_TAGS as UNPORTED_STREAM_TAGS
 from ..models.streams.markets import TILT_LABEL
 from ..ops.lp import LP, LPBuilder
 from ..ops import certify, cpu_ref
 from ..telemetry import trace as telemetry_trace
 from ..utils import faultinject
-from ..utils.errors import (AggregatedSolverError, ModelParameterError,
-                            MonthlyDataError, ParameterError, SolverError,
-                            TellUser, TimeseriesDataError)
+from ..utils.errors import (AggregatedSolverError, MonthlyDataError,
+                            ParameterError, SolverError, TellUser,
+                            TimeseriesDataError)
 from .aggregator import ServiceAggregator
 from .poi import POI
 from .window import WindowContext, make_windows
 
 
-# DER technology tags the reference accepts that are not ported yet
-UNPORTED_DER_TAGS = ("CAES", "ICE", "DieselGenset", "CT", "CHP", "Load",
-                     "ElectricVehicle1", "ElectricVehicle2")
-
-
 def _build_tech_map():
-    """Tag -> constructor(keys, scenario, der_id, datasets) for the
-    technologies this package carries; mirrors TECH_CLASS_MAP at
-    MicrogridScenario.py:71-82."""
+    """Tag -> constructor(keys, scenario, der_id, datasets); mirrors
+    TECH_CLASS_MAP at MicrogridScenario.py:71-82."""
+    from ..models.der.caes import CAES
+    from ..models.der.ev import ElectricVehicle1, ElectricVehicle2
+    from ..models.der.generators import CT, CHP, ICE, DieselGenset
+    from ..models.der.load import ControllableLoad
     from ..models.der.pv import PV
 
     def battery(keys, scenario, der_id, datasets):
         return Battery(keys, scenario, der_id, cycle_life=datasets.cycle_life)
 
+    def simple(cls):
+        return lambda keys, scenario, der_id, datasets: cls(
+            keys, scenario, der_id, datasets)
+
     return {
         "Battery": battery,
-        "PV": lambda keys, scenario, der_id, datasets: PV(
-            keys, scenario, der_id, datasets),
+        "CAES": simple(CAES),
+        "PV": simple(PV),
+        "ICE": simple(ICE),
+        "DieselGenset": simple(DieselGenset),
+        "CT": simple(CT),
+        "CHP": simple(CHP),
+        "Load": simple(ControllableLoad),
+        "ElectricVehicle1": simple(ElectricVehicle1),
+        "ElectricVehicle2": simple(ElectricVehicle2),
     }
 
 
@@ -159,10 +167,6 @@ class MicrogridScenario:
         tech_map = _build_tech_map()
         for tag, der_id, keys in case.ders:
             ctor = tech_map.get(tag)
-            if ctor is None and tag in UNPORTED_DER_TAGS:
-                raise ModelParameterError(
-                    f"DER technology {tag!r} is not ported to "
-                    "dervet_tpu_torch yet")
             if ctor is None:
                 raise ParameterError(f"unknown DER technology tag {tag!r}")
             self.ders.append(ctor(keys, self.scenario, der_id, case.datasets))
@@ -171,10 +175,6 @@ class MicrogridScenario:
         self.streams: Dict[str, ValueStream] = {}
         for tag, keys in case.streams.items():
             cls = vs_map.get(tag)
-            if cls is None and tag in UNPORTED_STREAM_TAGS:
-                raise ModelParameterError(
-                    f"value stream {tag!r} is not ported to "
-                    "dervet_tpu_torch yet")
             if cls is None:
                 raise ParameterError(f"unknown value stream tag {tag!r}")
             self.streams[tag] = cls(keys, self.scenario, case.datasets)
@@ -383,10 +383,22 @@ class MicrogridScenario:
         run_dispatch([self], backend=backend, solver_opts=solver_opts,
                      checkpoint_dir=checkpoint_dir, device=device)
 
+    def place_walks(self, backend: str, device=None) -> None:
+        """Reliability's outage walks run where the dispatch runs: on the
+        CPU under the exact backend, else on the dispatch device (``None``
+        -> the first GPU, raising when none is visible)."""
+        rel = self.streams.get("Reliability")
+        if rel is not None:
+            from ..device import resolve_device
+            rel.device = resolve_device("cpu" if backend == "cpu"
+                                        else device)
+
     def prepare_dispatch(self, backend: str, solver_opts=None,
-                         checkpoint_dir=None) -> None:
+                         checkpoint_dir=None, device=None) -> None:
         """Sizing module + requirements + (CPU) sizing window; leaves the
-        remaining windows pending for the batched driver."""
+        remaining windows pending for the batched driver.  ``device`` is
+        the dispatch device (see :meth:`place_walks`)."""
+        self.place_walks(backend, device)
         self.sizing_module()
         self._t0 = time.time()
         self._backend = backend
@@ -476,7 +488,7 @@ class MicrogridScenario:
         self._pending = list(windows)
 
     def prepare_resume(self, backend: str, solver_opts=None,
-                       checkpoint_dir=None) -> bool:
+                       checkpoint_dir=None, device=None) -> bool:
         """Manifest fast path: when a prior run recorded this case as
         fully ``done``, reload its persisted per-window results and skip
         the dispatch machinery entirely — no LP assembly, no grouping, no
@@ -495,6 +507,7 @@ class MicrogridScenario:
         solved = self._load_checkpoint(checkpoint_dir, solution)
         if {ctx.label for ctx in self.windows} - set(solved):
             return False          # incomplete: fall back to dispatch
+        self.place_walks(backend, device)
         self.sizing_module()
         # deferral analysis feeds the deferral_results drill-down, not the
         # dispatch LPs — a resumed case must still produce it or its
@@ -2581,9 +2594,10 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
         entry = (manifest or {}).get("cases", {}).get(str(s.case.case_id))
         if entry is not None and entry.get("status") == "done" and \
                 entry.get("fingerprint") == s._checkpoint_fingerprint() and \
-                s.prepare_resume(backend, solver_opts, checkpoint_dir):
+                s.prepare_resume(backend, solver_opts, checkpoint_dir,
+                                 device):
             continue
-        s.prepare_dispatch(backend, solver_opts, checkpoint_dir)
+        s.prepare_dispatch(backend, solver_opts, checkpoint_dir, device)
 
     # -- preemption machinery: one counter of applied window batches;
     # every boundary first gives the fault injector its chance to deliver

@@ -1,0 +1,130 @@
+"""``python -m dervet_tpu_torch`` against ``python -m dervet_tpu``.
+
+A reference-format model-parameters CSV with its time series, tariff
+and load-shed files (Battery + PV + ICE; DA, retail energy and demand
+charges, Reliability; two months) goes through both CLIs' ``main`` on
+exact HiGHS: every output CSV is byte-identical.  The port's CLI exits
+75 when the run is preempted, and non-zero, naming the subcommand, for
+the JAX package's subcommands it does not carry yet.
+"""
+import filecmp
+import subprocess
+import sys
+
+import pandas as pd
+import pytest
+import torch
+
+import dervet_tpu.__main__ as jax_cli
+import dervet_tpu_torch.__main__ as cli
+from dervet_tpu_torch import benchlib
+from dervet_tpu_torch.utils.errors import PreemptedError
+
+torch.set_num_threads(2)
+
+
+def _write_case(d):
+    """The case's files under ``d``; returns the parameters CSV path."""
+    ts = benchlib.synthetic_case(multi_der=True,
+                                 reliability=True).datasets.time_series
+    ts = ts.loc[ts.index.month <= 2]
+    # the loader takes hour-ENDING stamps (it shifts back by dt)
+    ts.set_axis(ts.index + pd.Timedelta(hours=1)).rename_axis(
+        "Datetime (he)").to_csv(d / "ts.csv")
+    benchlib.synthetic_tariff().to_csv(d / "tariff.csv")
+    benchlib.load_shed_curve().to_csv(d / "shed.csv", index=False)
+    rows = [
+        ("Scenario", "", "dt", "1", "float"),
+        ("Scenario", "", "opt_years", "[2017]", "list/int"),
+        ("Scenario", "", "n", "month", "string/int"),
+        ("Scenario", "", "start_year", "2017", "period"),
+        ("Scenario", "", "end_year", "2017", "period"),
+        ("Scenario", "", "allow_partial_year", "1", "bool"),
+        ("Scenario", "", "incl_site_load", "1", "bool"),
+        ("Scenario", "", "time_series_filename", "ts.csv", "string"),
+        ("Finance", "", "npv_discount_rate", "7", "float"),
+        ("Finance", "", "inflation_rate", "3", "float"),
+        ("Finance", "", "customer_tariff_filename", "tariff.csv", "string"),
+        ("Battery", "1", "ch_max_rated", "2000", "float"),
+        ("Battery", "1", "dis_max_rated", "2000", "float"),
+        ("Battery", "1", "ene_max_rated", "8000", "float"),
+        ("Battery", "1", "rte", "85", "float"),
+        ("Battery", "1", "llsoc", "5", "float"),
+        ("Battery", "1", "ulsoc", "100", "float"),
+        ("Battery", "1", "soc_target", "50", "float"),
+        ("PV", "1", "rated_capacity", "3000", "float"),
+        ("PV", "1", "curtail", "1", "bool"),
+        ("ICE", "1", "rated_capacity", "1000", "float"),
+        ("ICE", "1", "n", "2", "int"),
+        ("ICE", "1", "efficiency", "11", "float"),
+        ("ICE", "1", "fuel_cost", "2.5", "float"),
+        ("ICE", "1", "variable_om_cost", "0.004", "float"),
+        ("ICE", "1", "ccost_kW", "600", "float"),
+        ("DA", "", "growth", "0", "float"),
+        ("retailTimeShift", "", "growth", "0", "float"),
+        ("DCM", "", "growth", "0", "float"),
+        ("Reliability", "", "target", "4", "float"),
+        ("Reliability", "", "max_outage_duration", "12", "int"),
+        ("Reliability", "", "post_facto_only", "0", "bool"),
+        ("Reliability", "", "post_facto_initial_soc", "100", "float"),
+        ("Reliability", "", "load_shed_percentage", "1", "bool"),
+        ("Reliability", "", "load_shed_perc_filename", "shed.csv",
+         "string"),
+    ]
+    df = pd.DataFrame(rows, columns=["Tag", "ID", "Key", "Value", "Type"])
+    df["Active"] = "yes"
+    path = d / "params.csv"
+    df.to_csv(path, index=False)
+    return path
+
+
+def test_cli_csvs_byte_identical(tmp_path):
+    params = _write_case(tmp_path)
+    out_j, out_t = tmp_path / "jax", tmp_path / "torch"
+    jax_cli.main([str(params), "--backend", "cpu", "--out", str(out_j)])
+    res = cli.main([str(params), "--backend", "cpu", "--device", "cpu",
+                    "--out", str(out_t), "--gitlab-ci"])
+    assert res.run_health["windows"]["clean"] == 2
+    names = sorted(p.name for p in out_t.iterdir()
+                   if not p.name.startswith("run_health"))
+    ref = sorted(p.name for p in out_j.iterdir()
+                 if not p.name.startswith("run_health"))
+    assert names == ref
+    for want in ("timeseries_results", "load_coverage_prob",
+                 "adv_monthly_bill", "demand_charges", "pro_forma", "npv"):
+        assert any(n.startswith(want) for n in names), want
+    match, mismatch, errors = filecmp.cmpfiles(out_j, out_t, names,
+                                               shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+
+
+def test_cli_exits_75_when_preempted(tmp_path, monkeypatch):
+    params = _write_case(tmp_path)
+
+    def preempted(self, **kw):
+        raise PreemptedError("stop requested (signal 15)")
+
+    monkeypatch.setattr("dervet_tpu_torch.api.DERVET.solve", preempted)
+    with pytest.raises(SystemExit) as exc:
+        cli.main([str(params), "--backend", "cpu", "--device", "cpu"])
+    assert exc.value.code == 75
+
+
+@pytest.mark.parametrize("sub", cli.UNPORTED_SUBCOMMANDS)
+def test_unported_subcommands_exit_nonzero(sub, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main([sub, "anything"])
+    assert exc.value.code != 0
+    assert f"{sub!r} subcommand is not ported" in capsys.readouterr().err
+
+
+def test_module_entry_point_leaves_jax_unloaded():
+    code = ("import sys, runpy; sys.argv = ['x', 'serve']\n"
+            "try:\n"
+            "    runpy.run_module('dervet_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    print(e.code, sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'dervet_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.stdout.split() == ["2", "[]"], (out.stdout, out.stderr)

@@ -96,14 +96,22 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_unported_tags_raise_model_parameter_error():
-    from dervet_tpu_torch.utils.errors import ModelParameterError
+    """Every tag the JAX package takes is ported now: the ones once
+    refused here (ICE, Reliability) build, and only a tag neither
+    package knows is refused, by name."""
+    from dervet_tpu_torch.utils.errors import ParameterError
+    case = benchlib.synthetic_case(reliability=True)
+    case.ders.append(("ICE", "1", {"name": "ice", "rated_capacity": 500.0}))
+    scen = MicrogridScenario(case)
+    assert [d.tag for d in scen.ders] == ["Battery", "PV", "ICE"]
+    assert "Reliability" in scen.streams
     case = benchlib.synthetic_case()
-    case.ders.append(("ICE", "1", {"name": "ice"}))
-    with pytest.raises(ModelParameterError, match="ICE"):
+    case.ders.append(("Flywheel", "1", {}))
+    with pytest.raises(ParameterError, match="Flywheel"):
         MicrogridScenario(case)
     case = benchlib.synthetic_case()
-    case.streams["Reliability"] = {}
-    with pytest.raises(ModelParameterError, match="Reliability"):
+    case.streams["Arbitrage"] = {}
+    with pytest.raises(ParameterError, match="Arbitrage"):
         MicrogridScenario(case)
 
 

@@ -12,8 +12,11 @@ CPU test files share (``test_torch_pdhg``, ``test_torch_fused_chunk``).
 Checks: one chunk of each kernel and step variant from a mid-solve state
 (B = 129, not a multiple of any block) agrees with the plain version per
 instance to 1e-5 of the vector's scale, and launches exactly once, on the
-small LPs, on the ICE + CHP monthly window and on two shapes of the
-shared-state configuration (the DA + FR monthly window, a dense block); a full
+small LPs, on the ICE + CHP monthly window, on the first windows of the
+microgrid + Reliability and retail + demand-charge runs, and on two shapes
+of the shared-state configuration (the DA + FR monthly window, a dense
+block); one kernel instance launches at two shapes from two threads at
+once; Reliability's outage walks on the card equal their CPU run; a full
 solve on the card gives the CPU solve's statuses, objectives within the
 solver's ``eps_rel`` and iteration counts within one check window.
 """
@@ -88,7 +91,16 @@ LPS = {
 # bands; a dense op with every entry of K non-zero, 200 x 600)
 KERNEL_LPS = {**LPS, "ice_chp": lambda B: benchlib.multi_der_window_lp(),
               "da_fr": lambda B: benchlib.fr_window_lp(),
-              "dense_block": lambda B: benchlib.dense_block_lp()}
+              "dense_block": lambda B: benchlib.dense_block_lp(),
+              # the first monthly window of each run chip_smoke.py adds:
+              # the microgrid with Reliability's min-SOE rows (2977 x
+              # 5952, shared-state) and the demand-charge window (a dense
+              # op, 1665 x 2978)
+              "microgrid": lambda B: benchlib.window_lps(
+                  benchlib.synthetic_case(multi_der=True,
+                                          reliability=True))[0],
+              "retail_dcm": lambda B: benchlib.window_lps(
+                  benchlib.synthetic_case(retail=True))[0]}
 
 
 def price_batch(lp, B, seed=1):
@@ -284,6 +296,84 @@ def test_solve_on_card_matches_cpu(cuda, kind):
                                atol=1e-4 * np.abs(o_c).max())
     assert np.all(np.abs(gpu.iters.cpu().numpy() - cpu.iters.numpy())
                   <= pdhg.PDHGOptions().check_every)
+
+
+@pytest.mark.cuda
+def test_outage_walks_on_card_match_cpu(cuda):
+    """Reliability's outage walk and min-SOE recursion on the card give
+    the CPU tensors' answer: coverage start for start, profiles and
+    requirements to 1e-5 relative with ``inf`` in the same places."""
+    from dervet_tpu_torch.models.streams.reliability import (
+        min_soe_required, simulate_all_outages)
+    rng = np.random.default_rng(5)
+    T, L = 8760, 12
+    data = (rng.uniform(0, 100, T), np.full(T, 30.0), rng.uniform(0, 60, T),
+            rng.uniform(0, 50, T), 0.43,
+            np.maximum(1.0 - 0.05 * np.arange(L), 0.5))
+    fleet = (40.0, 50.0, 10.0, 200.0, 0.85, 1.0, L)
+    init = rng.uniform(20.0, 200.0, T)
+    (cd, pd_), (ch, ph) = (
+        simulate_all_outages(*data, init, *fleet, device=dev)
+        for dev in (cuda, "cpu"))
+    assert cd.device.type == "cuda" and pd_.device.type == "cuda"
+    np.testing.assert_array_equal(cd.cpu().numpy(), ch.numpy())
+    np.testing.assert_allclose(pd_.cpu().numpy(), ph.numpy(), rtol=1e-5,
+                               atol=0.0)
+    md, mh = (min_soe_required(*data, *fleet, device=dev).cpu().numpy()
+              for dev in (cuda, "cpu"))
+    np.testing.assert_array_equal(np.isinf(md), np.isinf(mh))
+    fin = np.isfinite(mh)
+    np.testing.assert_allclose(md[fin], mh[fin], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_one_instance_two_shapes_from_two_threads(cuda):
+    """The dispatch pipeline launches one kernel instance at groups of
+    other shapes from other threads at once: no launch may lower the
+    shared memory another launch of the instance takes."""
+    import threading
+    lps = [mixed_lp(port_lp.LPBuilder, T=T) for T in (48, 40)]
+    solvers = [pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(), device=cuda)
+               for lp in lps]
+    configs = {fused_chunk.config_for(lp.m, lp.n, (), s.op.compact,
+                                      "reflected")
+               for lp, s in zip(lps, solvers)}
+    assert len(configs) == 1
+    errors, outs = [], {}
+
+    def launches(i):
+        lp, solver = lps[i], solvers[i]
+        B = 8
+        C = torch.tensor(price_batch(lp, B), dtype=torch.float32,
+                         device=cuda)
+        Q, L, U = (torch.tensor(np.broadcast_to(a, (B, a.size)).copy(),
+                                dtype=torch.float32, device=cuda)
+                   for a in (lp.q, lp.l, lp.u))
+        sv = solver._solver
+        args = (solver.op, C, Q, L, U, solver.dr, solver.dc)
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                st = sv.init_state(*args)
+                t = sv._context(C, Q, L, U, solver.dr, solver.dc)
+                for _ in range(300):
+                    out = fused_chunk.batched_chunk(
+                        solver.op, t.c_s, t.q_s, t.l_s, t.u_s, st.omega,
+                        solver.eta, st.x, st.y, st.x_sum, st.y_sum,
+                        lp.n_eq, 8, "reflected", ALPHA["reflected"])
+                torch.cuda.synchronize()
+                outs[i] = out
+        except Exception as e:      # the assertion below reports it
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=launches, args=(i,))
+               for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert all(torch.isfinite(a).all() for o in outs.values() for a in o)
 
 
 @pytest.mark.cuda
