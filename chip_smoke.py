@@ -28,7 +28,12 @@ Phases:
                events, warm) beside the least time the card could take
                for the work the function needs (K's non-zeros), and for
                the work as the kernel stores and computes it (padded
-               band diagonals, compact forms);
+               band diagonals, compact forms); then the banded kernel at
+               every (structure, batch) pair phases 8 and 9 can launch
+               (the three monthly structures x the bucket grid 1-8,192),
+               from the mid-solve state and, up to 2,048, from a
+               refinement round's seeded start, each pair's device time
+               beside its bound, and the widest groups' real batches;
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -49,11 +54,32 @@ Phases:
                coverage, SOE profiles, load-coverage frame and min-SOE
                schedules equal the same stream's on the CPU; the walks'
                device time; the first 4 cases on exact HiGHS;
-  7. retail  — 64 cases x 12 monthly windows of Battery + PV billed on a
+  7. retail  — 32 cases x 12 monthly windows of Battery + PV billed on a
                time-of-use tariff with demand charges (retailTimeShift +
                DCM): the same checks, every group on the dense kernel, each
                demand-charge group's op, configuration, shape and batch
-               logged; the first 4 cases on exact HiGHS.
+               logged; the first 4 cases on exact HiGHS;
+  8. design  — ``run_design`` on the main case at the JAX package's
+               defaults (512 Halton candidates over 0.5-4 MW x 1-16 MWh,
+               one refinement round, the top 8 certified; CPU straggler
+               rescue off): every group on the banded kernel at a pair
+               phase 2 checked, no screening answer certificate-stamped,
+               the refinement round seeded from round 0, the 8 finalists
+               certified with none rescued on the CPU, their seeded
+               iterations below a cold solve of the same finalists, the
+               finalists on exact HiGHS within 1e-3 with the same winner;
+               then ``sizing_sweep`` on a 4 x 4 grid, whose surface argmin
+               is the certified top-1;
+  9. montecarlo — ``run_montecarlo`` with 1,024 samples (seed 0): one
+               screening dispatch and one certified dispatch of the
+               quantile-pinning samples, the same kernel checks, the
+               pinned samples on exact HiGHS within 1e-3, the published
+               statistics recomputed from the published samples to 1e-9,
+               a rerun and a reversed-order run on the shared caches
+               byte-identical; then 256 samples in order and reversed on
+               fresh caches within 1e-3 (the largest difference logged).
+               Phases 8 and 9 print their wall split (prep_s /
+               dispatch_s / post_s), launches and peak device memory.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -104,10 +130,35 @@ MAIN_CASES = 128
 WEEKLY_CASES = 8
 OBJ_RTOL = 1e-3
 # phases 6 and 7: their synthetic_sensitivity_cases options and case counts
+# (retail at 32 cases, not 64, so the whole smoke with phases 8 and 9
+# stays well inside its time limit: its groups' iteration tail runs to
+# the 400,000 limit and took ~460 s at 64 on the H100)
 RUNS = {"microgrid": (64, {"multi_der": True, "reliability": True}),
-        "retail": (64, {"retail": True})}
+        "retail": (32, {"retail": True})}
 # the outage walks on the card against the same functions on CPU tensors
 WALK_RTOL = 1e-5
+# phases 8 and 9 (the design screen and Monte-Carlo) at the JAX package's
+# defaults: population 512, top 8 certified, one refinement round; 1,024
+# samples; the sizing sweep's grid; the fresh-cache order comparison
+DESIGN_BOUNDS = {"kw": (500.0, 4000.0), "kwh": (1000.0, 16000.0)}
+DESIGN_POPULATION, DESIGN_TOP_K = 512, 8
+SIZING_GRID = ((500.0, 1500.0, 2500.0, 4000.0),
+               (1000.0, 6000.0, 11000.0, 16000.0))
+MC_SAMPLES, MC_ORDER_SAMPLES = 1024, 256
+# two certified totals this close are a tie for the winner check
+TIE_RTOL = 1e-4
+# the same samples solved in another batch order on fresh caches
+MC_ORDER_RTOL = 1e-3
+# the batches a design or Monte-Carlo group launches at: a group of one,
+# and the bucket grid it pads to (``scenario.batch_bucket``)
+GRID_BATCHES = (1, 8, 32, 128, 512, 2048, 8192)
+# the seeded check (a refinement round's start) runs up to this batch:
+# the rounds that seed from the solution memory (round 1, the certified
+# finalists and the pinned samples) launch at most 2,048 wide
+SEEDED_MAX_BATCH = 2048
+# real batches of the widest groups, timed beside their padded launch
+# (31-day months x 512 candidates and x 1,024 samples; 30-day x 1,024)
+REAL_BATCHES = {744: (3584, 7168), 720: (4096,), 672: ()}
 
 
 def log(*a):
@@ -358,32 +409,37 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, name=None):
+def device_ms(fn, reps, name=None, attempts=3):
     """Mean device time of one launch of the kernel whose name contains
     ``name`` over ``reps`` calls of ``fn``, from torch.profiler's CUDA
     activity (the kernel alone, without the wrapper's host work, which
     a stream timer also counts when the kernel is shorter than it); with
     ``name`` None, the device time of every kernel and copy a call of
-    ``fn`` runs.  None when the profiler records no device time."""
+    ``fn`` runs.  A profile that records nothing is taken again, up to
+    ``attempts`` times (one in a few dozen profiles of a long run came
+    back empty on the H100); None when none records device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name is None or name in evt.key:
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            total += dev_us
-            count += evt.count
-    if name is None:
-        count = reps
-    return total / count / 1e3 if count and total else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if name is None or name in evt.key:
+                dev_us = getattr(evt, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+                total += dev_us
+                count += evt.count
+        if name is None:
+            count = reps
+        if count and total:
+            return total / count / 1e3
+    return None
 
 
 def kernel_phase():
@@ -535,6 +591,105 @@ def kernel_phase():
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return records, checked, found
+
+
+def seeded_inputs(solver, B, seed):
+    """Chunk inputs as a refinement round's first launch meets them: the
+    batch (per-instance price noise, as ``chunk_inputs``) solved at the
+    loosest screening tier, then its answers taken as the warm-start
+    seeds of the next tier (``init_state(x0=, y0=)``: seeds scaled,
+    clipped into the box, the restart anchors; running sums and inner
+    counts zero), which is what ``solve_group`` hands the solver from
+    the solution memory."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.design import screening_options
+    lp, dev = solver.lp, solver.device
+    rng = np.random.default_rng(seed)
+    mult = rng.lognormal(0.0, 0.15, (B, lp.n))
+    C_np = np.where(lp.c != 0, mult * lp.c, 0.0)
+    res = solver.with_options(screening_options(solver.opts, 0)).solve(
+        c=C_np)
+    C = torch.as_tensor(C_np, dtype=torch.float32, device=dev)
+    Q, L, U = (torch.as_tensor(np.broadcast_to(a, (B, a.shape[0])).copy(),
+                               dtype=torch.float32, device=dev)
+               for a in (lp.q, lp.l, lp.u))
+    sv = solver._solver
+    st = sv.init_state(solver.op, C, Q, L, U, solver.dr, solver.dc,
+                       x0=res.x, y0=res.y)
+    t = sv._context(C, Q, L, U, solver.dr, solver.dc)
+    return (t, st.omega, st.x, st.y, st.x_sum, st.y_sum, st.inner,
+            st.x_restart, st.y_restart)
+
+
+def pair_phase(records):
+    """Phase 2, continued: the banded kernel against its plain version at
+    every (structure, batch) pair the design and Monte-Carlo phases can
+    launch (the three monthly structures of the main case at each batch
+    of ``GRID_BATCHES``), three step variants each, from the solver's
+    mid-solve state and, up to ``SEEDED_MAX_BATCH``, from a refinement
+    round's seeded start; then each pair's device time a launch beside
+    its bound, and the widest groups' real batches timed too (the
+    padding's cost).  Returns {(m, n, B): record}."""
+    import torch
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    monthly = window_lps("month", 1)
+    pairs, failures = {}, []
+    rec = records[fc.KERNEL_BANDED]
+    for T, days in ((744, 31), (720, 30), (672, 28)):
+        lp = monthly[T]
+        solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
+        check(fc.kernel_for(solver.op) == fc.KERNEL_BANDED,
+              f"{days}-day window is not banded")
+        for B in GRID_BATCHES + REAL_BATCHES[T]:
+            starts = [("mid-solve", chunk_inputs(solver, B, seed=B))]
+            if B <= SEEDED_MAX_BATCH:
+                starts.append(("seeded", seeded_inputs(solver, B, B + 1)))
+            worst = 0.0
+            for start, inputs in starts:
+                for variant in fc.VARIANTS:
+                    alpha = ALPHA[variant]
+                    kern = kernel_chunk(solver, inputs, variant, alpha)
+                    plain = plain_chunk(solver, inputs, variant, alpha,
+                                        torch.float32)
+                    abs_err = max((a - b).abs().max().item()
+                                  for a, b in zip(kern, plain))
+                    rel_err = max(rel_gap(a, b) for a, b in zip(kern, plain))
+                    finite = all(torch.isfinite(a).all().item()
+                                 for a in kern)
+                    if not finite or rel_err > KERNEL_RTOL:
+                        failures.append(f"{days}d B={B} {start} {variant}: "
+                                        f"rel {rel_err:.3e}")
+                    worst = max(worst, rel_err)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+                    rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
+            inputs = starts[0][1]
+            launch = chunk_launcher(solver, inputs, fc.REFLECTED)
+            ms, timer = device_ms(launch, 10, fc.KERNEL_BANDED), "device"
+            if ms is None:
+                # the call on the stream (the kernel plus the wrapper's
+                # host work) where the profiler records nothing
+                ms, timer = time_ms(launch, 10), "CUDA events, a call"
+            plain_ms = time_ms(lambda: plain_chunk(
+                solver, inputs, fc.REFLECTED, ALPHA[fc.REFLECTED],
+                torch.float32), 2)
+            need = bound(solver.op, B, lp.m, lp.n, fc.REFLECTED, needed=True)
+            log(f"[pairs] {days}d {lp.m}x{lp.n} B={B}: "
+                f"{' + '.join(st for st, _ in starts)} x {len(fc.VARIANTS)} "
+                f"variants max_rel={worst:.3e}; kernel {ms:.4f} ms ({timer}), "
+                f"plain {plain_ms:.4f} ms, bound {need[0]:.4f} ms by "
+                f"{need[1]}")
+            pairs[(lp.m, lp.n, B)] = {
+                "structure": f"{days}d", "op": solver.op, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": need[0], "timer": timer,
+                "seeded": B <= SEEDED_MAX_BATCH,
+                "grid": B in GRID_BATCHES}
+    if failures:
+        raise AssertionError("kernel disagrees with its plain version at "
+                             "a design/Monte-Carlo pair: "
+                             + "; ".join(failures))
+    return pairs
 
 
 def time_kernels(root, reps=20):
@@ -880,6 +1035,382 @@ def run_phase(kind, records, checked, found):
         f"{kind} check")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the design screen, the sizing sweep and Monte-Carlo
+# ---------------------------------------------------------------------------
+
+class DispatchLog:
+    """While open, records every ``run_dispatch`` the design and
+    Monte-Carlo engines make: its scenarios, wall time, the host time
+    before it since the previous one ended (case and scenario building:
+    the entry point's prep), its LP assembly and solve seconds, and the
+    dispatch's solve ledger.  ``times()`` splits the entry point's wall
+    into prep_s / dispatch_s / post_s."""
+    MODULES = ("dervet_tpu_torch.design.screen",
+               "dervet_tpu_torch.design.frontier",
+               "dervet_tpu_torch.stochastic.engine")
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._saved = [], []
+        for name in self.MODULES:
+            mod = importlib.import_module(name)
+            self._saved.append((mod, mod.run_dispatch))
+            mod.run_dispatch = self._wrap(mod.run_dispatch)
+        self.t_last = time.perf_counter()
+        self.t_start = self.t_last
+        return self
+
+    def _wrap(self, real):
+        def run_dispatch(scenarios, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(scenarios, *a, **k)
+            finally:
+                t1 = time.perf_counter()
+                meta = scenarios[0].solve_metadata if scenarios else {}
+                self.calls.append({
+                    "scenarios": len(scenarios), "gap_s": t0 - self.t_last,
+                    "wall_s": t1 - t0,
+                    "assembly_s": meta.get("dispatch_assembly_s"),
+                    "solve_s": meta.get("dispatch_solve_s"),
+                    "ledger": meta.get("solve_ledger")})
+                self.t_last = t1
+        return run_dispatch
+
+    def __exit__(self, *exc):
+        for mod, real in self._saved:
+            mod.run_dispatch = real
+        self.t_end = time.perf_counter()
+
+    def times(self):
+        return {"wall_s": round(self.t_end - self.t_start, 3),
+                "prep_s": round(sum(c["gap_s"] for c in self.calls), 3),
+                "dispatch_s": round(sum(c["wall_s"] for c in self.calls), 3),
+                "post_s": round(self.t_end - self.t_last, 3)}
+
+
+def check_pairs(call, pairs, what):
+    """Every device group of one logged dispatch ran the banded kernel
+    with no fallback at a (structure, batch) pair phase 2 checked, batch
+    being the width it launched at (``padded_to``, else its members).
+    Logs each group's real and padded batch, its launches, iterations
+    and warm-start split, and the kernel's device ms a launch at the
+    padded batch beside the bound of its real instances."""
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    led = benchlib.validate_solve_ledger(call["ledger"])
+    dev_groups = [g for g in led["groups"] if g.get("backend") == "torch"]
+    check(dev_groups, f"{what}: no device groups in the ledger")
+    for g in dev_groups:
+        pad = g.get("padded_to", g["batch"])
+        key = (g["m"], g["n"], pad)
+        check(g["kernel"] == fc.KERNEL_BANDED and "kernel_fallback" not in g,
+              f"{what}: group m={g['m']} n={g['n']} ran {g['kernel']} "
+              f"({g.get('kernel_fallback')})")
+        check(key in pairs, f"{what}: group {key} (m, n, batch) is a pair "
+                            "phase 2 did not check")
+        p = pairs[key]
+        warm = g.get("warm") or {}
+        split = {k: warm.get(k) for k in (
+            "seeded", "cold", "substituted", "iters_p50_seeded",
+            "iters_p50_cold")}
+        real = g["batch"] - int(warm.get("substituted") or 0)
+        real_bound = (bound(p["op"], real, g["m"], g["n"], fc.REFLECTED,
+                            needed=True)[0] if real else 0.0)
+        log(f"[{what}]   group {p['structure']} ({g.get('rung')}) batch "
+            f"{g['batch']} padded to {pad} (device members {real}): "
+            f"launches={g['kernel_launches']} iters p50/p99/max="
+            f"{g['iters_p50']}/{g['iters_p99']}/{g['iters_max']} "
+            f"solve_s={g['solve_s']} warm={json.dumps(split)}; "
+            f"kernel {p['ms']:.4f} ms a launch at B={pad}, bound of the "
+            f"{real} real instances {real_bound:.4f} ms")
+    return led
+
+
+def check_no_ladder(call, what):
+    """A screening dispatch accepts what its hard budget reached
+    (``inaccurate_factor`` 1e6): no group may climb the escalation
+    ladder."""
+    rungs = sorted({str(g.get("rung")) for g in call["ledger"]["groups"]})
+    check(set(rungs) <= {"None", "initial"},
+          f"{what}: screening groups climbed the ladder ({rungs})")
+
+
+def log_dispatch(call, what):
+    led = call["ledger"] or {}
+    totals = led.get("totals") or {}
+    log(f"[{what}] {call['scenarios']} scenarios: dispatch "
+        f"{call['wall_s']:.3f} s (LP assembly {call['assembly_s']} s, "
+        f"solve {call['solve_s']} s), {call['gap_s']:.3f} s of host work "
+        f"before it; windows {totals.get('windows')}, launches "
+        f"{(led.get('kernel') or {}).get('launches')}, iters "
+        f"{json.dumps(led.get('iters'))}, warm start "
+        f"{json.dumps(led.get('warm_start'))}, cpu_rescued "
+        f"{totals.get('cpu_rescued')}")
+
+
+def design_phase(records, pairs):
+    """Phase 8: ``run_design`` at the JAX package's defaults on the main
+    case, the finalists on exact HiGHS, a cold control of the finalists,
+    then ``sizing_sweep`` on a 4 x 4 grid."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch import benchlib, design, sizing
+    from dervet_tpu_torch.design import frontier as dfrontier
+    from dervet_tpu_torch.design.screen import ScreenedCandidate, \
+        score_scenario
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    from dervet_tpu_torch.scenario.scenario import (MicrogridScenario,
+                                                    SolverCache)
+    case = benchlib.synthetic_case(n="month", daily_cycle_limit=1)
+    n_win = len(MicrogridScenario(case).windows)
+    spec = design.DesignSpec(
+        bounds={("Battery", "1"): design.DERBounds(**DESIGN_BOUNDS)},
+        population=DESIGN_POPULATION, top_k=DESIGN_TOP_K, refine_rounds=1)
+    # the certified tier with no CPU work inside the solve (phases 6-7)
+    opts = PDHGOptions(cpu_rescue_after=None)
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    with DispatchLog() as dl:
+        front = design.run_design(case, spec, backend="torch",
+                                  solver_opts=opts)
+    launches = dict(fc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[design] run_design {DESIGN_POPULATION} candidates, top "
+        f"{DESIGN_TOP_K}: {json.dumps(dl.times())}, launches {launches}, "
+        f"peak device memory {peak / 2 ** 30:.3f} GiB, screen "
+        f"{front.screen['screen_s']} s at {front.screen['candidates_per_s']} "
+        f"candidates/s, rank_correlation {front.rank_correlation}")
+    check(launches[fc.KERNEL_BANDED] > 0, "design: banded kernel never "
+                                          "launched")
+    records[fc.KERNEL_BANDED].setdefault("launches_by_run", {})[
+        "design"] = launches[fc.KERNEL_BANDED]
+    check(len(dl.calls) == 3, f"design: {len(dl.calls)} dispatches, "
+                              "expected round 0, round 1, finalists")
+    labels = ("round 0", "round 1", "finalists")
+    for label, call, rnd in zip(labels, dl.calls,
+                                front.screen["rounds"] + [None]):
+        led = check_pairs(call, pairs, f"design {label}")
+        log_dispatch(call, f"design {label}")
+        if rnd is not None:
+            check_no_ladder(call, f"design {label}")
+            # the ledger counts real members only: padding duplicates are
+            # trimmed before scoring
+            check(led["totals"]["windows"] == rnd["candidates"] * n_win,
+                  f"design {label}: {led['totals']['windows']} windows for "
+                  f"{rnd['candidates']} candidates")
+            log(f"[design] {label}: {rnd['candidates']} candidates in "
+                f"{rnd['round_s']} s ({rnd['candidates'] / rnd['round_s']:.1f}"
+                f" candidates/s), eps_rel {rnd['eps_rel']}, budget "
+                f"{rnd['max_iters']}, windows seeded {rnd['seeded']} cold "
+                f"{rnd['cold']}")
+            # the refinement round seeds every survivor from round 0
+            check(rnd["round"] == 0 or rnd["seeded"] == rnd["windows"],
+                  f"design {label}: {rnd['seeded']} of {rnd['windows']} "
+                  "windows seeded")
+    check(front.screen["certification_stamped"] is False,
+          "design: a screening answer carries a certificate")
+    f = front.frontier
+    check(len(f) == DESIGN_TOP_K and front.all_finalists_certified,
+          f"design: finalists certified {list(f['certified'])}")
+    fin_led = dl.calls[2]["ledger"]
+    check(fin_led["totals"]["cpu_rescued"] == 0,
+          f"design: {fin_led['totals']['cpu_rescued']} finalist instances "
+          "solved on the CPU")
+    # seeded finalists against a cold solve of the same finalists
+    pop = {c.index: c for c in design.generate_population(spec)}
+    finalists = [ScreenedCandidate(candidate=pop[int(i)])
+                 for i in f["candidate"]]
+    with DispatchLog() as cold:
+        # padded as the finalists' round is, but with no solution memory
+        design.certify_finalists(
+            case, finalists, backend="torch", solver_opts=opts,
+            solver_cache=SolverCache(pad_grid=True, device="cuda"))
+    check_pairs(cold.calls[0], pairs, "design cold finalists")
+    seeded_p50 = (fin_led.get("warm_start") or {}).get("iters_p50_seeded")
+    cold_p50 = cold.calls[0]["ledger"]["iters"]["p50"]
+    log(f"[design] finalists: seeded iterations p50 {seeded_p50} against "
+        f"{cold_p50} cold (the same finalists, no solution memory)")
+    check(seeded_p50 is not None and seeded_p50 < cold_p50,
+          f"design: seeded finalists p50 {seeded_p50} not below cold "
+          f"{cold_p50}")
+    # the finalists on exact HiGHS
+    t0 = time.perf_counter()
+    host = design.certify_finalists(case, finalists, backend="cpu")
+    ops = np.array([score_scenario(host[int(i)]) for i in f["candidate"]])
+    rel = np.abs(f["operating_value"].to_numpy() - ops) / np.maximum(
+        np.abs(ops), 1.0)
+    totals = ops + f["capex"].to_numpy()
+    win = int(np.argmin(totals))
+    tie = abs(totals[win] - totals[0]) / max(abs(totals[win]), 1.0)
+    log(f"[design] finalists vs HiGHS ({time.perf_counter() - t0:.2f} s): "
+        f"max operating-value rel {rel.max():.3e} (limit {OBJ_RTOL}); "
+        f"HiGHS winner candidate {int(f['candidate'].iloc[win])}, card's "
+        f"{int(f['candidate'].iloc[0])} (total gap {tie:.2e})")
+    check(rel.max() < OBJ_RTOL, f"design: finalists rel {rel.max()} vs "
+                                "HiGHS")
+    check(win == 0 or tie <= TIE_RTOL, "design: HiGHS picks another winner")
+
+    # the legacy sizing sweep: a 4 x 4 grid at full fidelity
+    captured, real = {}, dfrontier.run_design
+
+    def capture(*a, **k):
+        captured["frontier"] = real(*a, **k)
+        return captured["frontier"]
+
+    dfrontier.run_design = capture
+    fc.reset_launch_counts()
+    try:
+        with DispatchLog() as sweep_log:
+            surface = sizing.sizing_sweep(case, *SIZING_GRID,
+                                          solver_opts=opts)
+    finally:
+        dfrontier.run_design = real
+    log(f"[design] sizing_sweep 4 x 4: {json.dumps(sweep_log.times())}, "
+        f"launches {dict(fc.LAUNCHES)}")
+    for i, call in enumerate(sweep_log.calls):
+        check_pairs(call, pairs, f"sizing dispatch {i}")
+    check(len(surface) == 16 and surface.converged.all(),
+          f"sizing: {len(surface)} rows, converged {list(surface.converged)}")
+    best = surface.loc[surface.total.idxmin()]
+    w = captured["frontier"].winner
+    gap = abs(float(w["total"]) - float(best["total"])) / max(
+        abs(float(best["total"])), 1.0)
+    log(f"[design] sizing surface argmin {best['kW']:.0f} kW / "
+        f"{best['kWh']:.0f} kWh (total {best['total']:.2f}); certified "
+        f"top-1 {w['kW']:.0f} kW / {w['kWh']:.0f} kWh (total "
+        f"{w['total']:.2f}, certified {w['certified']})")
+    check(bool(w["certified"]), "sizing: top-1 not certified")
+    check((float(w["kW"]), float(w["kWh"])) == (float(best["kW"]),
+                                                float(best["kWh"]))
+          or gap <= TIE_RTOL, "sizing: certified top-1 is not the "
+                              "surface argmin")
+
+
+def montecarlo_phase(records, pairs):
+    """Phase 9: ``run_montecarlo`` with 1,024 samples on the main case,
+    the pinned samples on exact HiGHS, the statistics recomputed, the
+    replay and reversed replay on shared caches, then 256 samples in
+    both orders on fresh caches."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch import benchlib, design, stochastic
+    from dervet_tpu_torch.design.screen import score_scenario
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    from dervet_tpu_torch.scenario.scenario import (MicrogridScenario,
+                                                    SolverCache, run_dispatch)
+    from dervet_tpu_torch.stochastic.engine import build_sample_scenarios
+    case = benchlib.synthetic_case(n="month", daily_cycle_limit=1)
+    n_win = len(MicrogridScenario(case).windows)
+    spec = stochastic.MCSpec(n_samples=MC_SAMPLES, seed=0)
+    opts = PDHGOptions(cpu_rescue_after=None)
+
+    def caches():
+        c = design.ScreeningCaches(device="cuda")
+        return c, SolverCache(pad_grid=True, memory=c.memory, device="cuda")
+
+    shared, final = caches()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    with DispatchLog() as dl:
+        r1 = stochastic.run_montecarlo(case, spec, backend="torch",
+                                       solver_opts=opts, caches=shared,
+                                       final_cache=final)
+    launches = dict(fc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    engine = {k: r1.engine[k] for k in (
+        "screen_s", "certify_s", "total_s", "samples_per_s_screening",
+        "samples_per_s_certified")}
+    log(f"[montecarlo] {MC_SAMPLES} samples: {json.dumps(dl.times())}, "
+        f"engine {json.dumps(engine)}, "
+        f"launches {launches}, peak device memory {peak / 2 ** 30:.3f} GiB, "
+        f"tier mix {r1.tier_mix}")
+    check(launches[fc.KERNEL_BANDED] > 0,
+          "montecarlo: banded kernel never launched")
+    records[fc.KERNEL_BANDED].setdefault("launches_by_run", {})[
+        "montecarlo"] = launches[fc.KERNEL_BANDED]
+    check([r["tier"] for r in r1.engine["rounds"]] == ["screening",
+                                                       "certified"]
+          and len(dl.calls) == 2,
+          f"montecarlo: rounds {r1.engine['rounds']}")
+    for label, call in zip(("screening", "certified"), dl.calls):
+        check_pairs(call, pairs, f"montecarlo {label}")
+        log_dispatch(call, f"montecarlo {label}")
+    check_no_ladder(dl.calls[0], "montecarlo screening")
+    check(dl.calls[0]["ledger"]["totals"]["windows"] == MC_SAMPLES * n_win,
+          "montecarlo: padding duplicates counted as windows")
+    check(not r1.engine["certification_stamped_screening"],
+          "montecarlo: a screening answer carries a certificate")
+    check(r1.pinning_all_certified and r1.tier_mix["quarantined"] == 0,
+          f"montecarlo: pinned samples not all certified ({r1.tier_mix})")
+    check(dl.calls[1]["ledger"]["totals"]["cpu_rescued"] == 0,
+          "montecarlo: pinned instances solved on the CPU")
+    # the published statistics from the published samples alone
+    v = np.array([row["objective"] for row in r1.as_dict()["samples"]])
+    s = np.sort(v)
+    k = int(np.ceil(round((1.0 - spec.alpha) * v.size, 12)))
+    want = {"mean": v.mean(), "cvar_alpha": s[-k:].mean(),
+            "var_alpha": np.quantile(v, spec.alpha),
+            **{f"p{100 * q:g}": np.quantile(v, q) for q in spec.quantiles}}
+    got = {**{k: r1.stats[k] for k in ("mean", "cvar_alpha", "var_alpha")},
+           **r1.stats["quantiles"]}
+    stat_rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    log(f"[montecarlo] stats {json.dumps(got)}; recomputed from the "
+        f"published samples: max rel {stat_rel:.2e}")
+    check(stat_rel <= 1e-9, f"montecarlo: statistics recompute {stat_rel}")
+    # the pinned samples on exact HiGHS
+    pinned = [int(i) for i in r1.samples.loc[
+        r1.samples["tier"] == "certified", "sample"]]
+    t0 = time.perf_counter()
+    host = build_sample_scenarios(case, spec, pinned)
+    run_dispatch(host, backend="cpu")
+    ref = np.array([score_scenario(h) for h in host])
+    rel = np.abs(v[pinned] - ref) / np.maximum(np.abs(ref), 1.0)
+    log(f"[montecarlo] {len(pinned)} pinned samples vs HiGHS "
+        f"({time.perf_counter() - t0:.2f} s): max rel {rel.max():.3e} "
+        f"(limit {OBJ_RTOL})")
+    check(rel.max() < OBJ_RTOL, f"montecarlo: pinned rel {rel.max()}")
+    # the replay contract: rerun and reversed order, shared caches
+    fc.reset_launch_counts()
+    with DispatchLog() as rl:
+        r2 = stochastic.run_montecarlo(case, spec, backend="torch",
+                                       solver_opts=opts, caches=shared,
+                                       final_cache=final)
+        r3 = stochastic.run_montecarlo(
+            case, spec, backend="torch", solver_opts=opts, caches=shared,
+            final_cache=final, sample_order=list(range(MC_SAMPLES))[::-1])
+    log(f"[montecarlo] replay + reversed replay: {json.dumps(rl.times())}, "
+        f"launches {dict(fc.LAUNCHES)}; substituted windows "
+        f"{[[r['substituted'] for r in x.engine['rounds']] for x in (r2, r3)]}"
+        f" of {[[r['windows'] for r in x.engine['rounds']] for x in (r2, r3)]}"
+        f"; memory {json.dumps(shared.memory.snapshot())}")
+    check(r1.to_json() == r2.to_json() == r3.to_json(),
+          "montecarlo: the replay is not byte-identical")
+    # order on fresh caches: kernel blocks are position-independent; are
+    # the batched check windows?
+    small = stochastic.MCSpec(n_samples=MC_ORDER_SAMPLES, seed=0)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = [stochastic.run_montecarlo(
+        case, small, backend="torch", solver_opts=opts,
+        **dict(zip(("caches", "final_cache"), caches())),
+        sample_order=order) for order in (
+            None, list(range(MC_ORDER_SAMPLES))[::-1])]
+    a, b = (r.samples for r in runs)
+    diff = (np.abs(a["objective"] - b["objective"])
+            / np.maximum(np.abs(b["objective"]), 1.0)).max()
+    log(f"[montecarlo] {MC_ORDER_SAMPLES} samples in order and reversed on "
+        f"fresh caches ({time.perf_counter() - t0:.2f} s, launches "
+        f"{dict(fc.LAUNCHES)}): largest per-sample rel difference {diff:.3e}"
+        f" ({'exactly 0' if diff == 0 else 'not 0'}), tiers equal "
+        f"{list(a['tier']) == list(b['tier'])}")
+    check(list(a["tier"]) == list(b["tier"]) and diff <= MC_ORDER_RTOL,
+          f"montecarlo: order changes the answer by {diff}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -927,12 +1458,20 @@ def main() -> int:
     records, checked, found = kernel_phase()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    pairs = pair_phase(records)
+    log(f"[pairs] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     main_phases(records, checked, profile=args.profile)
     log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
     for kind in RUNS:
         t0 = time.perf_counter()
         run_phase(kind, records, checked, found)
         log(f"[{kind}] done in {time.perf_counter() - t0:.1f} s")
+    for what, phase in (("design", design_phase),
+                        ("montecarlo", montecarlo_phase)):
+        t0 = time.perf_counter()
+        phase(records, pairs)
+        log(f"[{what}] done in {time.perf_counter() - t0:.1f} s")
     card = card_line()
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

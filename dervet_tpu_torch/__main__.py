@@ -4,18 +4,23 @@ run_DERVET.py:73-92 and ``python -m dervet_tpu``'s solve path).
     python -m dervet_tpu_torch PARAMS.csv [--backend auto|torch|cpu]
                                           [--device cuda:0] [--out DIR]
 
-The JAX package's other subcommands (``serve``, ``design``,
-``portfolio``, ``montecarlo``, ``fleet``, ``status``, ``trace``) belong
-to modules this package does not carry yet: they exit with status 2 and
-say so."""
+    python -m dervet_tpu_torch design PARAMS.csv --bounds kw=LO:HI,...
+    python -m dervet_tpu_torch montecarlo PARAMS.csv --samples N --seed S
+
+``design`` runs a one-shot BOOST sizing frontier
+(``design.cli.design_main``), ``montecarlo`` a one-shot Monte-Carlo
+valuation (``stochastic.cli.montecarlo_main``); both take ``--backend
+{torch,cpu}`` and ``--device``.  The JAX package's other subcommands
+(``serve``, ``portfolio``, ``fleet``, ``status``, ``trace``) belong to
+modules this package does not carry yet: they exit with status 2 and say
+so."""
 from __future__ import annotations
 
 import argparse
 import sys
 
 # subcommands of ``python -m dervet_tpu`` whose modules are not ported
-UNPORTED_SUBCOMMANDS = ("serve", "design", "portfolio", "montecarlo",
-                        "fleet", "status", "trace")
+UNPORTED_SUBCOMMANDS = ("serve", "portfolio", "fleet", "status", "trace")
 EXIT_UNPORTED = 2
 
 
@@ -25,6 +30,18 @@ def main(argv=None):
         print(f"dervet_tpu_torch: the {argv[0]!r} subcommand is not ported "
               "yet; run it with python -m dervet_tpu", file=sys.stderr)
         raise SystemExit(EXIT_UNPORTED)
+    if argv and argv[0] == "design":
+        # one-shot BOOST sizing: screen a candidate population, certify
+        # the top-k, write the ranked frontier — exit codes match solve
+        # (0 ok, 75 preempted)
+        from .design.cli import design_main
+        raise SystemExit(design_main(argv[1:]))
+    if argv and argv[0] == "montecarlo":
+        # one-shot Monte-Carlo valuation: seeded sample mass at the
+        # screening tier, quantile-pinning samples certified, CVaR +
+        # quantile distribution artifacts (exit 0 ok, 75 preempted)
+        from .stochastic.cli import montecarlo_main
+        raise SystemExit(montecarlo_main(argv[1:]))
 
     from .api import DERVET
 

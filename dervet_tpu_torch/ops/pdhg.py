@@ -515,6 +515,26 @@ class PDHGOptions:
     compact_chunk_iters: int = 4096
     dtype: str = "float32"
 
+    @classmethod
+    def screening(cls, base: Optional["PDHGOptions"] = None,
+                  max_iters: int = 4096) -> "PDHGOptions":
+        """The BOOST-style low-fidelity screening tier (PAPERS.md:
+        arxiv 2501.10842): loose tolerances + a short, hard iteration
+        budget.  Used by the design screen and the Monte-Carlo sample
+        mass — a screening solution ranks candidates but is NEVER
+        certified; callers must mark results degraded and route
+        anything decision-grade back through the full tier.  The relaxed
+        ``inaccurate_factor`` accepts whatever the budget reached — a
+        screening solve exits with its best iterate and an honest
+        residual instead of climbing the escalation ladder."""
+        base = base if base is not None else cls()
+        return dataclasses.replace(
+            base, eps_rel=1e-2, eps_abs=1e-3,
+            max_iters=int(max_iters),
+            inaccurate_factor=1e6,
+            # screening batches are throwaway: never bill CPU rescues
+            cpu_rescue_after=None)
+
 
 class PDHGResult(NamedTuple):
     x: torch.Tensor          # (B, n) unscaled primal solution

@@ -993,13 +993,17 @@ class SolverCache:
     ``solve_group`` once per window step on identical structure, so the
     cache keeps a multi-year degradation case from re-preconditioning the
     same LP dozens of times.  Every solver of one cache lives on
-    ``device`` (set by ``run_dispatch`` when left None)."""
+    ``device`` (set by ``run_dispatch`` when left None; a name such as
+    ``"cuda"`` is resolved here)."""
 
     def __init__(self, pad_grid: bool = False, warm_start: bool = False,
                  memory=None, device=None):
         self.solvers: Dict[tuple, object] = {}
         self.builds = 0
         self.hits = 0
+        if device is not None:
+            from ..device import resolve_device
+            device = resolve_device(device)
         self.device = device
         self._iters_ewma: Dict[tuple, float] = {}
         # serving mode: pad each group's batch up to the compaction bucket

@@ -3,9 +3,10 @@
 A reference-format model-parameters CSV with its time series, tariff
 and load-shed files (Battery + PV + ICE; DA, retail energy and demand
 charges, Reliability; two months) goes through both CLIs' ``main`` on
-exact HiGHS: every output CSV is byte-identical.  The port's CLI exits
-75 when the run is preempted, and non-zero, naming the subcommand, for
-the JAX package's subcommands it does not carry yet.
+exact HiGHS: every output CSV is byte-identical, and so are the
+``design`` and ``montecarlo`` subcommands' deterministic artifacts.  The
+port's CLI exits 75 when a run is preempted, and non-zero, naming the
+subcommand, for the JAX package's subcommands it does not carry yet.
 """
 import filecmp
 import subprocess
@@ -128,3 +129,51 @@ def test_module_entry_point_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.stdout.split() == ["2", "[]"], (out.stdout, out.stderr)
+
+
+# the design and Monte-Carlo artifacts without wall-clock content
+# (design_frontier.json's ``screen`` block and run_health*.json carry
+# seconds and rates)
+DETERMINISTIC = {"design": ["design_population.csv", "design_frontier.csv"],
+                 "montecarlo": ["mc_samples.csv", "mc_distribution.json"]}
+SUB_ARGS = {"design": ["--bounds", "kw=500:2500,kwh=1000:9000",
+                       "--population", "4", "--top-k", "2"],
+            "montecarlo": ["--samples", "4", "--seed", "7", "--alpha",
+                           "0.75", "--quantiles", "0.5"]}
+
+
+@pytest.mark.parametrize("sub", sorted(DETERMINISTIC))
+def test_subcommand_artifacts_byte_identical(sub, tmp_path):
+    params = _write_case(tmp_path)
+    out_j, out_t = tmp_path / "jax", tmp_path / "torch"
+    with pytest.raises(SystemExit) as exc:
+        jax_cli.main([sub, str(params), *SUB_ARGS[sub], "--backend", "cpu",
+                      "--out", str(out_j)])
+    assert exc.value.code == 0
+    with pytest.raises(SystemExit) as exc:
+        cli.main([sub, str(params), *SUB_ARGS[sub], "--backend", "cpu",
+                  "--device", "cpu", "--out", str(out_t)])
+    assert exc.value.code == 0
+    names = DETERMINISTIC[sub]
+    match, mismatch, errors = filecmp.cmpfiles(out_j, out_t, names,
+                                               shallow=False)
+    assert match == names, (mismatch, errors)
+    assert sorted(p.name for p in out_t.iterdir()) == \
+        sorted(p.name for p in out_j.iterdir())
+
+
+@pytest.mark.parametrize("sub,entry", [
+    ("design", "dervet_tpu_torch.design.frontier.run_design"),
+    ("montecarlo", "dervet_tpu_torch.stochastic.engine.run_montecarlo")])
+def test_subcommand_exits_75_when_preempted(sub, entry, tmp_path,
+                                            monkeypatch):
+    params = _write_case(tmp_path)
+
+    def preempted(*a, **kw):
+        raise PreemptedError("stop requested (signal 15)")
+
+    monkeypatch.setattr(entry, preempted)
+    with pytest.raises(SystemExit) as exc:
+        cli.main([sub, str(params), *SUB_ARGS[sub], "--backend", "cpu",
+                  "--device", "cpu"])
+    assert exc.value.code == 75

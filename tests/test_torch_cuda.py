@@ -18,7 +18,9 @@ of the shared-state configuration (the DA + FR monthly window, a dense
 block); one kernel instance launches at two shapes from two threads at
 once; Reliability's outage walks on the card equal their CPU run; a full
 solve on the card gives the CPU solve's statuses, objectives within the
-solver's ``eps_rel`` and iteration counts within one check window.
+solver's ``eps_rel`` and iteration counts within one check window; a small
+``run_design`` and ``run_montecarlo`` on the card give the CPU run's
+finalists and pinned samples, and the Monte-Carlo replay is byte-identical.
 """
 import numpy as np
 import pytest
@@ -387,3 +389,68 @@ def test_wrapper_rejects_wrong_dtype(cuda):
     with pytest.raises(TypeError):
         fused_chunk.dense_chunk(f, g, f, f, s, s, x, g, f, g, solver.op,
                                 lp.n_eq, 4)
+
+
+def _small_case(hours=72):
+    case = benchlib.synthetic_case()
+    case.scenario["allow_partial_year"] = True
+    case.datasets.time_series = case.datasets.time_series.iloc[:hours]
+    return case
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+
+
+@pytest.mark.cuda
+def test_run_design_on_card_matches_cpu(cuda):
+    """A 12-candidate screen with one refinement round and 3 certified
+    finalists on the card: the CPU run's finalists, certified totals
+    within 2e-4, the screen never certificate-stamped, and the kernels
+    launched."""
+    from dervet_tpu_torch import design
+    spec = design.DesignSpec(
+        bounds={("Battery", "1"): design.DERBounds(kw=(500.0, 2500.0),
+                                                   kwh=(1000.0, 9000.0))},
+        population=12, top_k=3, refine_rounds=1)
+    fused_chunk.reset_launch_counts()
+    card = design.run_design(_small_case(), spec, device=cuda)
+    launches = sum(fused_chunk.LAUNCHES.values())
+    host = design.run_design(_small_case(), spec, device="cpu")
+    assert launches > 0
+    assert card.all_finalists_certified
+    assert card.screen["certification_stamped"] is False
+    assert list(card.frontier["candidate"]) == \
+        list(host.frontier["candidate"])
+    assert _rel(card.frontier["total"], host.frontier["total"]).max() < 2e-4
+    assert all(g["device"] == "cuda:0" for g in card.solve_ledger["groups"]
+               if g.get("backend") == "torch")
+
+
+@pytest.mark.cuda
+def test_run_montecarlo_on_card_matches_cpu(cuda):
+    """An 8-sample Monte-Carlo on the card: the CPU run's pinned samples,
+    screening objectives within 1e-3 and certified ones within 2e-4, and
+    a byte-identical replay on shared caches."""
+    from dervet_tpu_torch import design, stochastic
+    from dervet_tpu_torch.scenario.scenario import SolverCache
+    spec = stochastic.MCSpec(n_samples=8, seed=3, alpha=0.75,
+                             quantiles=(0.5,))
+    caches = design.ScreeningCaches(device=cuda)
+    final = SolverCache(pad_grid=True, memory=caches.memory, device=cuda)
+    fused_chunk.reset_launch_counts()
+    card = stochastic.run_montecarlo(_small_case(), spec, device=cuda,
+                                     caches=caches, final_cache=final)
+    assert sum(fused_chunk.LAUNCHES.values()) > 0
+    again = stochastic.run_montecarlo(_small_case(), spec, device=cuda,
+                                      caches=caches, final_cache=final)
+    host = stochastic.run_montecarlo(_small_case(), spec, device="cpu")
+    assert card.to_json() == again.to_json()
+    assert card.pinning_all_certified
+    a, b = card.samples, host.samples
+    assert list(a["tier"]) == list(b["tier"])
+    screen = (b["tier"] == "screening").to_numpy()
+    assert _rel(a["objective"][screen], b["objective"][screen]).max() < 1e-3
+    assert _rel(a["objective"][~screen], b["objective"][~screen]).max() \
+        < 2e-4
