@@ -34,6 +34,9 @@ Phases:
                from the mid-solve state and, up to 2,048, from a
                refinement round's seeded start, each pair's device time
                beside its bound, and the widest groups' real batches;
+               then the dense kernel at the pairs phase 10 launches (the
+               weekly structure at the bucket widths 8-512, the 24-hour
+               remainder at 8, the service's warm-up LP at 8);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -74,12 +77,43 @@ Phases:
                screening dispatch and one certified dispatch of the
                quantile-pinning samples, the same kernel checks, the
                pinned samples on exact HiGHS within 1e-3, the published
-               statistics recomputed from the published samples to 1e-9,
-               a rerun and a reversed-order run on the shared caches
-               byte-identical; then 256 samples in order and reversed on
-               fresh caches within 1e-3 (the largest difference logged).
+               statistics recomputed from the published samples to 1e-9;
+               then 256 samples in order and reversed on fresh caches
+               within 1e-3 (the largest difference logged), and a rerun
+               and a reversed-order run of the first on its caches
+               byte-identical.
                Phases 8 and 9 print their wall split (prep_s /
-               dispatch_s / post_s), launches and peak device memory.
+               dispatch_s / post_s), launches and peak device memory;
+ 10. serve   — the scenario service on the card: ``ScenarioService()``
+               (``device=None`` -> cuda:0) warms the card at ``start``
+               (the dense kernel at the warm-up LP's pair) and serves,
+               each round's ``run_once`` driven on a thread of its own:
+               a coalesced round of four requests (48, 32 and 16 monthly
+               cases with the daily-cycle rows, 8 weekly cases: both
+               kernels), every window certified, none on the CPU, every
+               group at a pair phase 2 checked (its padded width and
+               each bucket it compacted to), the 16-case request within
+               1e-6 of its solo solve on the card and its first 4 cases
+               on HiGHS, the padding's kernel time logged; a second mix
+               (56 + 24 cases) with no solver built (its first runs of a
+               program at a new width logged); an exact repeat that
+               substitutes every window, launches nothing and answers
+               byte-identically; a near
+               request (energy x1.02) that seeds, beside the same cases
+               cold on a fresh service; a shed storm (queue of 4) whose
+               priority-0 answers are degraded and uncertified, launched
+               on the card, and whose priority-1 answer is certified; a
+               backend-loss drill (one injected ``DeviceLossError``): one
+               re-init, no round lost, the replay within 1e-6 of an
+               undisturbed answer; a design request (64 candidates, top
+               4) and a Monte-Carlo request (128 samples), each repeated
+               with no solver built; then ``python -m dervet_tpu_torch
+               serve SPOOL --once`` in a process of its own on two
+               pickled payloads and a ``portfolio.json`` (refused with a
+               typed error), and ``status SPOOL``.  Each round prints its
+               wall split, request latency p50/p99, windows per device
+               batch, launches by kernel, solver builds and hits, seeded
+               and substituted windows and peak device memory.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -159,6 +193,35 @@ SEEDED_MAX_BATCH = 2048
 # real batches of the widest groups, timed beside their padded launch
 # (31-day months x 512 candidates and x 1,024 samples; 30-day x 1,024)
 REAL_BATCHES = {744: (3584, 7168), 720: (4096,), 672: ()}
+# the dense kernel's pairs phase 10 launches: the weekly structure at
+# the bucket widths a coalesced round pads its 416 windows to (512) and
+# compacts them through, the 24-hour remainder at 8, and the service's
+# warm-up LP (``device._warmup_lp``, dense) at its batch of 8
+DENSE_PAIRS = {168: (8, 32, 128, 512), 24: (8,)}
+WARMUP_BATCH = 8
+# phase 10 (the scenario service, one warm ScenarioService on the card):
+# the coalesced round's monthly requests (cases with the daily-cycle
+# rows, as phase 3) and its weekly request (phase 4's cases, the dense
+# kernel); the second mix; the near request's energy factor; the shed
+# storm (three priority-0 requests and one priority-1, SERVE_SHED cases
+# each, on a queue of depth 4); the drill's request; the design request
+# (population, top k) and the Monte-Carlo request; the spool's two
+# pickled payloads
+SERVE_ROUND = {"m48": 48, "m32": 32, "m16": 16}
+SERVE_WEEKLY = 8
+SERVE_MIX = {"x56": 56, "x24": 24}
+SERVE_NEAR = 1.02
+SERVE_SHED = 8
+SERVE_DRILL = 8
+SERVE_DESIGN = (64, 4)
+SERVE_MC = 128
+SERVE_SPOOL = (8, 8)
+# monthly windows a served case has (the 2017 year)
+SERVE_MONTHS = 12
+# the 16-case request against a solo solve of the same cases on the
+# card, and the drill's replay against an undisturbed answer
+SERVE_RTOL = 1e-6
+SERVE_SPOOL_TIMEOUT_S = 300
 
 
 def log(*a):
@@ -630,7 +693,9 @@ def pair_phase(records):
     mid-solve state and, up to ``SEEDED_MAX_BATCH``, from a refinement
     round's seeded start; then each pair's device time a launch beside
     its bound, and the widest groups' real batches timed too (the
-    padding's cost).  Returns {(m, n, B): record}."""
+    padding's cost); then the dense kernel at the pairs phase 10
+    launches (``DENSE_PAIRS``, the warm-up LP), from the mid-solve
+    state.  Returns {(m, n, B): record}."""
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
@@ -684,10 +749,53 @@ def pair_phase(records):
                 "structure": f"{days}d", "op": solver.op, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": need[0], "timer": timer,
                 "seeded": B <= SEEDED_MAX_BATCH,
-                "grid": B in GRID_BATCHES}
+                "grid": B in GRID_BATCHES, "solver": solver}
+    from dervet_tpu_torch.device import _warmup_lp
+    weekly = window_lps(168, 0)
+    dense = [(f"weekly {T}h", weekly[T], DENSE_PAIRS[T]) for T in DENSE_PAIRS]
+    dense.append(("warm-up", _warmup_lp(), (WARMUP_BATCH,)))
+    rec = records[fc.KERNEL_DENSE]
+    for name, lp, batches in dense:
+        solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
+        check(fc.kernel_for(solver.op) == fc.KERNEL_DENSE,
+              f"{name} is not dense")
+        for B in batches:
+            inputs = chunk_inputs(solver, B, seed=B)
+            worst = 0.0
+            for variant in fc.VARIANTS:
+                alpha = ALPHA[variant]
+                kern = kernel_chunk(solver, inputs, variant, alpha)
+                plain = plain_chunk(solver, inputs, variant, alpha,
+                                    torch.float32)
+                abs_err = max((a - b).abs().max().item()
+                              for a, b in zip(kern, plain))
+                rel_err = max(rel_gap(a, b) for a, b in zip(kern, plain))
+                if not all(torch.isfinite(a).all().item() for a in kern) \
+                        or rel_err > KERNEL_RTOL:
+                    failures.append(f"{name} B={B} {variant}: rel "
+                                    f"{rel_err:.3e}")
+                worst = max(worst, rel_err)
+                rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+                rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
+            launch = chunk_launcher(solver, inputs, fc.REFLECTED)
+            ms, timer = device_ms(launch, 10, fc.KERNEL_DENSE), "device"
+            if ms is None:
+                ms, timer = time_ms(launch, 10), "CUDA events, a call"
+            plain_ms = time_ms(lambda: plain_chunk(
+                solver, inputs, fc.REFLECTED, ALPHA[fc.REFLECTED],
+                torch.float32), 2)
+            need = bound(solver.op, B, lp.m, lp.n, fc.REFLECTED, needed=True)
+            log(f"[pairs] {name} {lp.m}x{lp.n} B={B}: mid-solve x "
+                f"{len(fc.VARIANTS)} variants max_rel={worst:.3e}; kernel "
+                f"{ms:.4f} ms ({timer}), plain {plain_ms:.4f} ms, bound "
+                f"{need[0]:.4f} ms by {need[1]}")
+            pairs[(lp.m, lp.n, B)] = {
+                "structure": name, "op": solver.op, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": need[0], "timer": timer,
+                "seeded": False, "grid": True, "solver": solver}
     if failures:
         raise AssertionError("kernel disagrees with its plain version at "
-                             "a design/Monte-Carlo pair: "
+                             "a phase 8-10 pair: "
                              + "; ".join(failures))
     return pairs
 
@@ -1050,10 +1158,15 @@ class DispatchLog:
                "dervet_tpu_torch.design.frontier",
                "dervet_tpu_torch.stochastic.engine")
 
+    def __init__(self, extra=()):
+        # more modules whose ``run_dispatch`` to record (the service's
+        # batch round: ``dervet_tpu_torch.service.batcher``)
+        self.modules = self.MODULES + tuple(extra)
+
     def __enter__(self):
         import importlib
         self.calls, self._saved = [], []
-        for name in self.MODULES:
+        for name in self.modules:
             mod = importlib.import_module(name)
             self._saved.append((mod, mod.run_dispatch))
             mod.run_dispatch = self._wrap(mod.run_dispatch)
@@ -1291,9 +1404,9 @@ def design_phase(records, pairs):
 
 def montecarlo_phase(records, pairs):
     """Phase 9: ``run_montecarlo`` with 1,024 samples on the main case,
-    the pinned samples on exact HiGHS, the statistics recomputed, the
-    replay and reversed replay on shared caches, then 256 samples in
-    both orders on fresh caches."""
+    the pinned samples on exact HiGHS, the statistics recomputed, then
+    256 samples in both orders on fresh caches, and the replay and
+    reversed replay of the first of them on its caches."""
     import numpy as np
     import torch
     from dervet_tpu_torch import benchlib, design, stochastic
@@ -1373,32 +1486,17 @@ def montecarlo_phase(records, pairs):
         f"({time.perf_counter() - t0:.2f} s): max rel {rel.max():.3e} "
         f"(limit {OBJ_RTOL})")
     check(rel.max() < OBJ_RTOL, f"montecarlo: pinned rel {rel.max()}")
-    # the replay contract: rerun and reversed order, shared caches
-    fc.reset_launch_counts()
-    with DispatchLog() as rl:
-        r2 = stochastic.run_montecarlo(case, spec, backend="torch",
-                                       solver_opts=opts, caches=shared,
-                                       final_cache=final)
-        r3 = stochastic.run_montecarlo(
-            case, spec, backend="torch", solver_opts=opts, caches=shared,
-            final_cache=final, sample_order=list(range(MC_SAMPLES))[::-1])
-    log(f"[montecarlo] replay + reversed replay: {json.dumps(rl.times())}, "
-        f"launches {dict(fc.LAUNCHES)}; substituted windows "
-        f"{[[r['substituted'] for r in x.engine['rounds']] for x in (r2, r3)]}"
-        f" of {[[r['windows'] for r in x.engine['rounds']] for x in (r2, r3)]}"
-        f"; memory {json.dumps(shared.memory.snapshot())}")
-    check(r1.to_json() == r2.to_json() == r3.to_json(),
-          "montecarlo: the replay is not byte-identical")
     # order on fresh caches: kernel blocks are position-independent; are
     # the batched check windows?
     small = stochastic.MCSpec(n_samples=MC_ORDER_SAMPLES, seed=0)
+    backwards = list(range(MC_ORDER_SAMPLES))[::-1]
+    fresh = [caches(), caches()]
     fc.reset_launch_counts()
     t0 = time.perf_counter()
     runs = [stochastic.run_montecarlo(
-        case, small, backend="torch", solver_opts=opts,
-        **dict(zip(("caches", "final_cache"), caches())),
-        sample_order=order) for order in (
-            None, list(range(MC_ORDER_SAMPLES))[::-1])]
+        case, small, backend="torch", solver_opts=opts, caches=c,
+        final_cache=f, sample_order=order)
+        for (c, f), order in zip(fresh, (None, backwards))]
     a, b = (r.samples for r in runs)
     diff = (np.abs(a["objective"] - b["objective"])
             / np.maximum(np.abs(b["objective"]), 1.0)).max()
@@ -1409,6 +1507,543 @@ def montecarlo_phase(records, pairs):
         f"{list(a['tier']) == list(b['tier'])}")
     check(list(a["tier"]) == list(b["tier"]) and diff <= MC_ORDER_RTOL,
           f"montecarlo: order changes the answer by {diff}")
+    # the replay contract: rerun and reversed order on the in-order run's
+    # caches (its host LP assembly, not the card, is a replay's time: at
+    # 1,024 samples the two took 204 s of a 1,198.6 s smoke)
+    shared, final = fresh[0]
+    fc.reset_launch_counts()
+    with DispatchLog() as rl:
+        r2 = stochastic.run_montecarlo(case, small, backend="torch",
+                                       solver_opts=opts, caches=shared,
+                                       final_cache=final)
+        r3 = stochastic.run_montecarlo(
+            case, small, backend="torch", solver_opts=opts, caches=shared,
+            final_cache=final, sample_order=backwards)
+    log(f"[montecarlo] replay + reversed replay of the {MC_ORDER_SAMPLES}: "
+        f"{json.dumps(rl.times())}, launches {dict(fc.LAUNCHES)}; "
+        "substituted windows "
+        f"{[[r['substituted'] for r in x.engine['rounds']] for x in (r2, r3)]}"
+        f" of {[[r['windows'] for r in x.engine['rounds']] for x in (r2, r3)]}"
+        f"; memory {json.dumps(shared.memory.snapshot())}")
+    check(runs[0].to_json() == r2.to_json() == r3.to_json(),
+          "montecarlo: the replay is not byte-identical")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the scenario service
+# ---------------------------------------------------------------------------
+
+def served_cases(n_cases, scale=1.0, **kw):
+    """{i: case}: ``synthetic_sensitivity_cases(n_cases)`` (monthly
+    windows with the daily-cycle rows unless ``kw`` says otherwise), the
+    battery's energy rating times ``scale``."""
+    from dervet_tpu_torch import benchlib
+    kw = {"daily_cycle_limit": 1, **kw}
+    cases = benchlib.synthetic_sensitivity_cases(n_cases, **kw)
+    for c in cases:
+        for tag, _, keys in c.ders:
+            if tag == "Battery" and scale != 1.0:
+                keys["ene_max_rated"] = float(keys["ene_max_rated"]) * scale
+    return dict(enumerate(cases))
+
+
+class ServeRound:
+    """One ``run_once`` of a service, driven on a thread of its own (not
+    the thread that warmed the card, and not the service's batcher
+    thread, which catches round errors): the launch counts set to 0
+    just before and read just after, peak device memory, the round's
+    ``run_dispatch`` calls (``DispatchLog``) and its wall split."""
+
+    def __init__(self, svc, label):
+        self.svc, self.label = svc, label
+
+    def run(self):
+        import torch
+        from dervet_tpu_torch.ops import fused_chunk as fc
+        out = {}
+
+        def body():
+            try:
+                out["served"] = self.svc.run_once()
+            except BaseException as e:     # re-raised on the caller
+                out["error"] = e
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        with DispatchLog(extra=("dervet_tpu_torch.service.batcher",)) as dl:
+            th = threading.Thread(target=body, name="serve-rounds")
+            th.start()
+            th.join()
+        self.launches = dict(fc.LAUNCHES)
+        self.peak = torch.cuda.max_memory_allocated()
+        self.dl = dl
+        if "error" in out:
+            raise out["error"]
+        self.served = out["served"]
+        return self
+
+    def report(self, ledger=None):
+        """The round's line: wall split, latency p50/p99 so far, windows
+        per device batch, launches by kernel, solver builds and hits,
+        seeded and substituted windows, peak device memory."""
+        m = self.svc.metrics()
+        led = ledger if ledger is not None else (
+            self.svc.last_round_ledger or {})
+        initial = [g for g in led.get("groups", ())
+                   if g.get("rung") in (None, "initial")
+                   and g.get("backend") == "torch"]
+        per_batch = (sum(g["batch"] for g in initial) / len(initial)
+                     if initial else 0.0)
+        warm = led.get("warm_start") or {}
+        cc = m["compile_cache"]
+        log(f"[serve] {self.label}: {json.dumps(self.dl.times())}, "
+            f"latency p50/p99 {m['latency_s']['p50']}/"
+            f"{m['latency_s']['p99']} s (n={m['latency_s']['n']}), windows "
+            f"per device batch {per_batch:.1f} ({len(initial)} groups), "
+            f"launches {self.launches}, solver builds {cc['solver_builds']} "
+            f"hits {cc['solver_hits']}, seeded {warm.get('seeded', 0)} "
+            f"substituted {warm.get('substituted', 0)}, compile events "
+            f"{(led.get('totals') or {}).get('compile_events')}, peak "
+            f"device memory {self.peak / 2 ** 30:.3f} GiB")
+
+
+def check_served_groups(led, pairs, what, launched=True):
+    """Every device group of a served round that launched a kernel ran
+    the chunk kernel its op takes, with no fallback, at (structure,
+    batch) pairs phase 2 held against the plain version: its launch
+    width (``padded_to``, else its members) and every bucket the solver
+    compacted it to.  ``launched``: the round must have launched."""
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    led = benchlib.validate_solve_ledger(led)
+    dev = [g for g in led["groups"] if g.get("backend") == "torch"]
+    check(not launched or any(g["kernel_launches"] for g in dev),
+          f"{what}: no group launched a kernel")
+    for g in dev:
+        if not g["kernel_launches"]:
+            continue
+        widths = [g.get("padded_to", g["batch"])] + [
+            b for b, _ in g.get("bucket_occupancy") or ()]
+        for B in widths:
+            key = (g["m"], g["n"], B)
+            check(key in pairs, f"{what}: group {key} (m, n, batch) is a "
+                                "pair phase 2 did not check")
+            check(g["kernel"] == fc.kernel_for(pairs[key]["op"])
+                  and "kernel_fallback" not in g,
+                  f"{what}: group m={g['m']} n={g['n']} ran {g['kernel']} "
+                  f"({g.get('kernel_fallback')})")
+        check(g["device"] == "cuda:0", f"{what}: group on {g['device']}")
+    check((led["totals"].get("cpu_rescued") or 0) == 0,
+          f"{what}: {led['totals'].get('cpu_rescued')} instances solved "
+          "on the CPU")
+    return led
+
+
+def check_served_certified(res, what):
+    """A served scenario answer: certified fidelity, every window
+    certified by the float64 certificate, none on the CPU."""
+    health = res.run_health
+    cert = health["certification"]
+    n_win = sum(len(i.scenario.windows) for i in res.instances.values())
+    check(res.fidelity == "certified", f"{what}: fidelity {res.fidelity}")
+    check(cert["enabled"] and cert["windows_certified"] == n_win
+          and cert["windows"]["rejected_final"] == 0,
+          f"{what}: {cert['windows']} of {n_win} windows certified")
+    check(health["windows"]["cpu_fallback"] == 0,
+          f"{what}: CPU-fallback windows {health['windows']}")
+    check(not health["cases_quarantined"], health["quarantine_reasons"])
+    return n_win
+
+
+def objectives(res):
+    return {k: inst.objective_values["Total Objective"]
+            for k, inst in res.instances.items()}
+
+
+def objective_gap(a, b):
+    """(max per-window relative gap, bit-equal) of two answers."""
+    import numpy as np
+    oa, ob = objectives(a), objectives(b)
+    check(sorted(oa) == sorted(ob), "answers hold different cases")
+    worst, same = 0.0, True
+    for k in oa:
+        x, y = oa[k].to_numpy(), ob[k].loc[oa[k].index].to_numpy()
+        worst = max(worst, float((np.abs(x - y)
+                                  / np.maximum(np.abs(y), 1.0)).max()))
+        same = same and x.tobytes() == y.tobytes()
+    return worst, same
+
+
+def new_service(opts, **kw):
+    """A ScenarioService on the card (``device=None``), not started: the
+    card is warmed as ``start`` warms it (``warmup_device``, recorded as
+    its ``device_info``), and the phase drives its rounds itself, with no
+    batcher thread to swallow a round's error."""
+    from dervet_tpu_torch.device import warmup_device
+    from dervet_tpu_torch.service import ScenarioService
+    svc = ScenarioService(backend="torch", solver_opts=opts, max_wait_s=0.0,
+                          **kw)
+    svc.device_info = warmup_device(svc.device)
+    return svc
+
+
+def serve_phase(records, pairs):
+    """Phase 10: the scenario service on the card.  A warm service
+    (``device=None`` -> cuda:0) serves a coalesced round of four requests
+    (monthly and weekly), a second mix, an exact repeat, a near request,
+    a design and a Monte-Carlo request and their repeats; fresh services
+    give the near request's cold control, the shed storm and the
+    backend-loss drill; then ``python -m dervet_tpu_torch serve SPOOL
+    --once`` serves two pickled payloads and refuses a portfolio."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    from dervet_tpu_torch import design, stochastic
+    from dervet_tpu_torch.api import DERVET
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    from dervet_tpu_torch.utils import faultinject
+    # the certified tier with no CPU work inside the solve (phases 6-9)
+    opts = PDHGOptions(cpu_rescue_after=None)
+    total = {k: 0 for k in fc.KERNELS}
+
+    def count(rnd):
+        for k, n in rnd.launches.items():
+            total[k] += n
+
+    # 1. start: the warm-up on this thread, nvcc's library already built
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc = new_service(opts)
+    warm = dict(fc.LAUNCHES)
+    info = svc.device_info
+    log(f"[serve] start: {info} in {time.perf_counter() - t0:.3f} s, "
+        f"warm-up launches {warm}, device {svc.device}")
+    check(info["platform"] == "gpu" and info["n_devices"] == 1
+          and info["device_kind"] == torch.cuda.get_device_name(0)
+          and str(svc.device) == "cuda:0", f"serve: device {info}")
+    from dervet_tpu_torch.device import _warmup_lp
+    wlp = _warmup_lp()
+    check(warm[fc.KERNEL_DENSE] > 0
+          and (wlp.m, wlp.n, WARMUP_BATCH) in pairs,
+          f"serve: the warm-up launched {warm}")
+    for k, n in warm.items():
+        total[k] += n
+
+    # 2. the coalesced round: four requests, one run_once
+    reqs = {rid: served_cases(n) for rid, n in SERVE_ROUND.items()}
+    reqs["wk8"] = served_cases(SERVE_WEEKLY, n=168, daily_cycle_limit=0)
+    futs = {rid: svc.submit(c, request_id=rid) for rid, c in reqs.items()}
+    rnd = ServeRound(svc, "coalesced round").run()
+    count(rnd)
+    check(rnd.served == len(reqs), f"serve: round served {rnd.served}")
+    res = {rid: f.result(0) for rid, f in futs.items()}
+    led = check_served_groups(svc.last_round_ledger, pairs, "serve round")
+    rnd.report()
+    n_win = {rid: check_served_certified(r, f"serve {rid}")
+             for rid, r in res.items()}
+    cross = [g for g in led["groups"] if len(g.get("requests") or ()) > 1]
+    check(cross, "serve: no cross-request group")
+    rec = svc.metrics()["resilience"]["backend_recovery"]
+    check(rec["losses"] == 0 and rec["rounds_lost"] == 0, f"serve: {rec}")
+    check(rnd.launches[fc.KERNEL_BANDED] > 0
+          and rnd.launches[fc.KERNEL_DENSE] > 0,
+          f"serve: round launches {rnd.launches}")
+    log(f"[serve] round: {sum(n_win.values())} windows, "
+        f"{len(cross)} cross-request groups")
+    for g in led["groups"]:
+        pad = g.get("padded_to", g["batch"])
+        p = pairs.get((g["m"], g["n"], pad))
+        # the padding: duplicates of the last member ride every launch
+        # at the padded width until the solver compacts
+        extra = ""
+        if pad != g["batch"] and p is not None:
+            real = device_ms(chunk_launcher(p["solver"], chunk_inputs(
+                p["solver"], g["batch"], seed=11), fc.REFLECTED), 10,
+                g["kernel"])
+            if real is not None:
+                extra = (f"; kernel {p['ms']:.4f} ms a launch at {pad} "
+                         f"against {real:.4f} ms at {g['batch']}: at most "
+                         f"{(p['ms'] - real) * g['kernel_launches']:.1f} ms "
+                         "of the group's kernel time is padding")
+        log(f"[serve]   group {p['structure'] if p else '?'} m={g['m']} "
+            f"n={g['n']} batch {g['batch']} padded to {pad} "
+            f"({100 * (pad - g['batch']) / pad:.0f}% duplicates), requests "
+            f"{g.get('requests')}, launches {g['kernel_launches']}, iters "
+            f"p50/max {g['iters_p50']}/{g['iters_max']}, compactions "
+            f"{g.get('bucket_occupancy')}, solve_s {g['solve_s']}{extra}")
+    # the smallest request against a solo solve of its cases on the card
+    small = min(SERVE_ROUND, key=SERVE_ROUND.get)
+    n_small = SERVE_ROUND[small]
+    t0 = time.perf_counter()
+    solo = DERVET.from_cases(list(served_cases(n_small).values())).solve(
+        backend="torch", solver_opts=opts)
+    gap, same = objective_gap(res[small], solo)
+    log(f"[serve] {small} against a solo solve of its cases on the card "
+        f"({time.perf_counter() - t0:.2f} s): max per-window objective rel "
+        f"{gap:.3e} (limit {SERVE_RTOL}), bit-equal {same}")
+    check(res[small].run_health["windows"] == solo.run_health["windows"],
+          "serve: statuses differ from the solo solve")
+    check(gap <= SERVE_RTOL, f"serve: {small} vs solo {gap}")
+    check_against_highs(list(served_cases(n_small).values())[:4],
+                        objectives(res[small]), "serve")
+
+    # 3. a second mix: the same buckets, nothing built
+    builds, hits = svc.solver_cache.builds, svc.solver_cache.hits
+    futs = {rid: svc.submit(served_cases(n), request_id=rid)
+            for rid, n in SERVE_MIX.items()}
+    rnd = ServeRound(svc, "second mix").run()
+    count(rnd)
+    for rid, f in futs.items():
+        check_served_certified(f.result(0), f"serve {rid}")
+    led = check_served_groups(svc.last_round_ledger, pairs, "serve mix")
+    rnd.report()
+    check(svc.solver_cache.builds == builds
+          and svc.solver_cache.hits > hits,
+          f"serve mix: builds {builds} -> {svc.solver_cache.builds}, "
+          f"hits {hits} -> {svc.solver_cache.hits}")
+    # compile_events (a program's first run at a batch width on a
+    # solver) is logged, not gated: a new width builds nothing in the
+    # port — the kernels take any batch — and the mix's groups compact
+    # through widths its convergence picks
+    log(f"[serve] second mix: {led['totals']['compile_events']} first "
+        "runs of a program at a new width")
+
+    # 4. the exact repeat: every window from the memory, no launch
+    f = svc.submit(served_cases(n_small), request_id="repeat")
+    rnd = ServeRound(svc, "exact repeat").run()
+    count(rnd)
+    rep = f.result(0)
+    warm = svc.last_round_ledger["warm_start"]
+    rnd.report()
+    check(warm["substituted"] == n_win[small]
+          and sum(rnd.launches.values()) == 0,
+          f"serve repeat: substituted {warm['substituted']} of "
+          f"{n_win[small]}, launches {rnd.launches}")
+    gap, same = objective_gap(rep, res[small])
+    check(same, f"serve repeat: not byte-identical (gap {gap})")
+
+    # 5. a near request, seeded, against the same cases cold
+    f = svc.submit(served_cases(n_small, SERVE_NEAR), request_id="near")
+    rnd = ServeRound(svc, "near request").run()
+    count(rnd)
+    check_served_certified(f.result(0), "serve near")
+    led = check_served_groups(svc.last_round_ledger, pairs, "serve near")
+    rnd.report()
+    warm = led["warm_start"]
+    cold_svc = new_service(opts)
+    f = cold_svc.submit(served_cases(n_small, SERVE_NEAR),
+                        request_id="near-cold")
+    crnd = ServeRound(cold_svc, "near request cold (fresh service)").run()
+    count(crnd)
+    check_served_certified(f.result(0), "serve near cold")
+    cled = check_served_groups(cold_svc.last_round_ledger, pairs,
+                               "serve near cold")
+    crnd.report()
+    log(f"[serve] near request: {warm['seeded']} of {n_win[small]} windows "
+        f"seeded (exact {warm['exact']}, near {warm['near']}, predicted "
+        f"{warm['predicted']}), iterations p50 {warm['iters_p50_seeded']} "
+        f"seeded against {cled['iters']['p50']} cold")
+    check(warm["seeded"] > 0, "serve near: no window seeded")
+    cold_svc.close()
+
+    # 6. the shed storm: a queue of 4, three priority-0 requests
+    shed_svc = new_service(opts, max_queue_depth=4, max_batch_requests=4,
+                           shed_sustain_rounds=1)
+    futs = {f"s{i}": shed_svc.submit(
+        served_cases(SERVE_SHED, 1.0 + 0.01 * (i + 1)), request_id=f"s{i}",
+        priority=int(i == 3)) for i in range(4)}
+    rnd = ServeRound(shed_svc, "shed storm").run()
+    count(rnd)
+    check(rnd.served == 4, f"serve shed: served {rnd.served}")
+    rnd.report()
+    for rid, f in futs.items():
+        r = f.result(0)
+        if rid == "s3":
+            check_served_certified(r, "serve shed priority 1")
+            check_served_groups(shed_svc.last_round_ledger, pairs,
+                                "serve shed priority 1")
+            continue
+        cert = r.run_health["certification"]
+        check(r.fidelity == "degraded" and not cert["enabled"]
+              and cert["windows_certified"] == 0,
+              f"serve shed {rid}: {r.fidelity} {cert}")
+        sl = r.solve_ledger
+        check(any(g.get("kernel_launches") for g in sl["groups"]),
+              f"serve shed {rid}: no launch")
+        for g in sl["groups"]:
+            B = g.get("padded_to", g["batch"])
+            check((g["m"], g["n"], B) in pairs
+                  and g["device"] == "cuda:0" and "kernel_fallback" not in g,
+                  f"serve shed {rid}: group {g['m']}x{g['n']} B={B} "
+                  f"{g['kernel']} on {g['device']}")
+    shed = shed_svc.metrics()["resilience"]["load_shedding"]
+    log(f"[serve] shed storm: {shed}")
+    check(shed["degraded_requests"] == 3, f"serve shed: {shed}")
+    shed_svc.close()
+
+    # 7. the backend-loss drill against an undisturbed answer
+    calm = new_service(opts)
+    f = calm.submit(served_cases(SERVE_DRILL, 0.97), request_id="calm")
+    crnd = ServeRound(calm, "drill control (fresh service)").run()
+    count(crnd)
+    want = f.result(0)
+    calm.close()
+    drill = new_service(opts)
+    with faultinject.inject(device_loss=True, device_loss_n=1) as plan:
+        f = drill.submit(served_cases(SERVE_DRILL, 0.97), request_id="drill")
+        rnd = ServeRound(drill, "backend-loss drill").run()
+    count(rnd)
+    got = f.result(0)
+    rnd.report()
+    rec = drill.metrics()["resilience"]["backend_recovery"]
+    fired = [k for k, _ in plan.fired].count(faultinject.EVENT_DEVICE_LOSS)
+    gap, same = objective_gap(got, want)
+    log(f"[serve] drill: {fired} injected loss, recovery {rec}; replay "
+        f"against the undisturbed answer: max rel {gap:.3e} (limit "
+        f"{SERVE_RTOL}), bit-equal {same}")
+    check(fired == 1 and rec["losses"] == 1 and rec["reinits"] == 1
+          and rec["rounds_lost"] == 0, f"serve drill: {rec}")
+    check_served_certified(got, "serve drill")
+    check_served_groups(drill.last_round_ledger, pairs, "serve drill")
+    check(gap <= SERVE_RTOL, f"serve drill: replay gap {gap}")
+    drill.close()
+
+    # 8. design and Monte-Carlo requests on the warm service, repeated
+    from dervet_tpu_torch import benchlib
+    case = benchlib.synthetic_case(n="month", daily_cycle_limit=1)
+    pop, top = SERVE_DESIGN
+    spec = design.DesignSpec(
+        bounds={("Battery", "1"): design.DERBounds(**DESIGN_BOUNDS)},
+        population=pop, top_k=top, refine_rounds=1)
+    mc = stochastic.MCSpec(n_samples=SERVE_MC, seed=0)
+    answers = {}
+    for rep_i in range(2):
+        before = (svc.solver_cache.builds,
+                  svc.design_caches.snapshot()["builds"])
+        f = svc.submit_design(case, spec, request_id=f"design{rep_i}")
+        rnd = ServeRound(svc, f"design request {rep_i}").run()
+        count(rnd)
+        front = f.result(0)
+        for call in rnd.dl.calls:
+            check_served_groups(call["ledger"], pairs,
+                                f"serve design {rep_i}", launched=False)
+        rnd.report()
+        check(front.fidelity == "certified" and front.all_finalists_certified
+              and len(front.frontier) == top,
+              f"serve design: {front.frontier[['candidate', 'certified']]}")
+        check(front.screen["certification_stamped"] is False,
+              "serve design: a screening answer is certificate-stamped")
+        f = svc.submit_montecarlo(case, mc, request_id=f"mc{rep_i}")
+        rnd = ServeRound(svc, f"Monte-Carlo request {rep_i}").run()
+        count(rnd)
+        dist = f.result(0)
+        for call in rnd.dl.calls:
+            check_served_groups(call["ledger"], pairs,
+                                f"serve montecarlo {rep_i}", launched=False)
+        rnd.report(ledger=rnd.dl.calls[-1]["ledger"])
+        check(dist.fidelity == "certified" and dist.pinning_all_certified
+              and dist.tier_mix["quarantined"] == 0,
+              f"serve montecarlo: {dist.tier_mix}")
+        after = (svc.solver_cache.builds,
+                 svc.design_caches.snapshot()["builds"])
+        log(f"[serve] design + Monte-Carlo {rep_i}: winner candidate "
+            f"{int(front.frontier['candidate'].iloc[0])}, tier mix "
+            f"{dist.tier_mix}, solver builds (certified, screening) "
+            f"{before} -> {after}")
+        if rep_i:
+            check(after == before, f"serve repeat: builds {before} -> "
+                                   f"{after}")
+            check(list(front.frontier["candidate"]) == list(
+                answers["design"].frontier["candidate"]),
+                "serve design repeat: other finalists")
+            check(dist.samples["objective"].to_numpy().tobytes()
+                  == answers["mc"].samples["objective"].to_numpy().tobytes(),
+                  "serve montecarlo repeat: not byte-identical")
+        answers = {"design": front, "mc": dist}
+    m = svc.metrics()
+    check(m["resilience"]["backend_recovery"]["rounds_lost"] == 0
+          and m["requests"]["failed"] == 0, f"serve: {m['requests']}")
+    log(f"[serve] warm service: requests {m['requests']}, rounds "
+        f"{m['rounds']}, latency {m['latency_s']}")
+    svc.close()
+
+    # 9. the spool: ``serve SPOOL --once`` in a process of its own
+    root = tempfile.mkdtemp(prefix="serve-spool-")
+    try:
+        spool = os.path.join(root, "spool")
+        incoming = os.path.join(spool, "incoming")
+        os.makedirs(incoming)
+        rids = {}
+        for i, n in enumerate(SERVE_SPOOL):
+            rid = f"spool{i}"
+            rids[rid] = n
+            with open(os.path.join(incoming, f"{rid}.pkl"), "wb") as fh:
+                pickle.dump({"cases": served_cases(n, 1.0 + 0.05 * (i + 1)),
+                             "priority": 0}, fh)
+        with open(os.path.join(incoming, "folio.json"), "w") as fh:
+            json.dump({"portfolio": {"sites": []}}, fh)
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dervet_tpu_torch", "serve", spool,
+             "--once"], cwd=here, capture_output=True, text=True,
+            timeout=SERVE_SPOOL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+        log(f"[serve] serve --once: exit {proc.returncode} in {wall:.2f} s; "
+            + " | ".join(tail))
+        check(proc.returncode == 0, f"serve --once exited "
+                                    f"{proc.returncode}: {tail}")
+        for rid, n in rids.items():
+            out = os.path.join(spool, "results", rid)
+            with open(os.path.join(out, f"run_health.{rid}.json")) as fh:
+                health = json.load(fh)
+            with open(os.path.join(out, f"solve_ledger.{rid}.json")) as fh:
+                sl = json.load(fh)
+            csvs = [p for p in os.listdir(out) if p.endswith(".csv")]
+            cert = health["certification"]
+            check(csvs and health["fidelity"] == "certified"
+                  and cert["windows_certified"] == n * SERVE_MONTHS
+                  and health["windows"]["cpu_fallback"] == 0,
+                  f"serve spool {rid}: {cert['windows']}")
+            for g in sl["groups"]:
+                if g.get("kernel_launches"):
+                    B = g.get("padded_to", g["batch"])
+                    check((g["m"], g["n"], B) in pairs
+                          and g["device"] == "cuda:0"
+                          and "kernel_fallback" not in g,
+                          f"serve spool {rid}: group {g['m']}x{g['n']} "
+                          f"B={B} on {g['device']}")
+            log(f"[serve] spool {rid}: {len(csvs)} CSVs, "
+                f"{n * SERVE_MONTHS} windows "
+                f"certified, launches {sum(g.get('kernel_launches', 0) for g in sl['groups'])}")
+        with open(os.path.join(spool, "failed",
+                               "folio.json.error.json")) as fh:
+            err = json.load(fh)
+        check(err["error"] == "ParameterError"
+              and "portfolio/" in err["message"], f"serve spool: {err}")
+        with open(os.path.join(spool, "service_metrics.json")) as fh:
+            sm = json.load(fh)
+        check(sm["requests"]["completed"] == 2
+              and sm["service"]["device"]["platform"] == "gpu",
+              f"serve spool metrics: {sm['requests']}")
+        log(f"[serve] spool metrics: requests {sm['requests']}, latency "
+            f"{sm['latency_s']}, device {sm['service']['device']}")
+        st = subprocess.run(
+            [sys.executable, "-m", "dervet_tpu_torch", "status", spool],
+            cwd=here, capture_output=True, text=True, timeout=120)
+        log(f"[serve] status: exit {st.returncode}; "
+            + " | ".join(st.stdout.strip().splitlines()[-3:]))
+        check(st.returncode == 0, f"status exited {st.returncode}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k, n in total.items():
+        records[k].setdefault("launches_by_run", {})["serve"] = n
+    log(f"[serve] launches in this process {total}")
+    check(all(total.values()), f"serve: a kernel never launched {total}")
 
 
 def main() -> int:
@@ -1436,6 +2071,7 @@ def main() -> int:
         print(f"chip_smoke: the dervet_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -1468,10 +2104,12 @@ def main() -> int:
         run_phase(kind, records, checked, found)
         log(f"[{kind}] done in {time.perf_counter() - t0:.1f} s")
     for what, phase in (("design", design_phase),
-                        ("montecarlo", montecarlo_phase)):
+                        ("montecarlo", montecarlo_phase),
+                        ("serve", serve_phase)):
         t0 = time.perf_counter()
         phase(records, pairs)
         log(f"[{what}] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     card = card_line()
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

@@ -6,21 +6,26 @@ run_DERVET.py:73-92 and ``python -m dervet_tpu``'s solve path).
 
     python -m dervet_tpu_torch design PARAMS.csv --bounds kw=LO:HI,...
     python -m dervet_tpu_torch montecarlo PARAMS.csv --samples N --seed S
+    python -m dervet_tpu_torch serve SPOOL_DIR [--once] [--device cuda:0]
+    python -m dervet_tpu_torch status SPOOL_DIR [SPOOL_DIR...]
+    python -m dervet_tpu_torch trace RID DIR [DIR...]
 
 ``design`` runs a one-shot BOOST sizing frontier
 (``design.cli.design_main``), ``montecarlo`` a one-shot Monte-Carlo
 valuation (``stochastic.cli.montecarlo_main``); both take ``--backend
-{torch,cpu}`` and ``--device``.  The JAX package's other subcommands
-(``serve``, ``portfolio``, ``fleet``, ``status``, ``trace``) belong to
-modules this package does not carry yet: they exit with status 2 and say
-so."""
+{torch,cpu}`` and ``--device``.  ``serve`` starts the persistent scenario
+service over a file spool (``service.server.serve_main``; exit 0 after a
+drain), ``status`` and ``trace`` are the ops views of its published
+telemetry (``telemetry.ops``).  The JAX package's ``portfolio`` and
+``fleet`` subcommands belong to modules this package does not carry yet:
+they exit with status 2 and say so."""
 from __future__ import annotations
 
 import argparse
 import sys
 
 # subcommands of ``python -m dervet_tpu`` whose modules are not ported
-UNPORTED_SUBCOMMANDS = ("serve", "portfolio", "fleet", "status", "trace")
+UNPORTED_SUBCOMMANDS = ("portfolio", "fleet")
 EXIT_UNPORTED = 2
 
 
@@ -30,6 +35,19 @@ def main(argv=None):
         print(f"dervet_tpu_torch: the {argv[0]!r} subcommand is not ported "
               "yet; run it with python -m dervet_tpu", file=sys.stderr)
         raise SystemExit(EXIT_UNPORTED)
+    if argv and argv[0] == "serve":
+        # persistent scenario service over a file spool: drops in
+        # SPOOL/incoming/ become requests; SIGTERM drains and exits 0
+        from .service.server import serve_main
+        raise SystemExit(serve_main(argv[1:]))
+    if argv and argv[0] == "status":
+        # live status from the serve loops' published telemetry
+        from .telemetry.ops import status_main
+        raise SystemExit(status_main(argv[1:]))
+    if argv and argv[0] == "trace":
+        # one request's stitched span tree (journals when no export)
+        from .telemetry.ops import trace_main
+        raise SystemExit(trace_main(argv[1:]))
     if argv and argv[0] == "design":
         # one-shot BOOST sizing: screen a candidate population, certify
         # the top-k, write the ranked frontier — exit codes match solve

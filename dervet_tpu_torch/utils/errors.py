@@ -191,16 +191,29 @@ class PortfolioInfeasibleError(ServiceError):
 
 
 class BreakerOpenError(ServiceError):
-    """Admission refused: the service's backend circuit breaker is open
-    (backend re-initialization and the CPU failover both failed) — the
-    service is alive but cannot currently solve.  ``retry_hint`` is the
-    breaker's next half-open probe time."""
+    """Refused: a circuit breaker of the service is open — at admission
+    the backend breaker (recent rounds lost their backend even after
+    re-initialization), in a batch round the certify breaker (a
+    certification-rejection storm).  The service is alive but will not
+    solve now.  ``retry_hint`` is the breaker's next half-open probe
+    time."""
 
     kind = "breaker_open"
 
     def __init__(self, msg: str, probe_in_s: Optional[float] = None):
         super().__init__(msg)
         self.retry_hint = probe_in_s
+
+
+class BackendLostError(ServiceError):
+    """The round's backend died and did not come back: re-initialization
+    failed ``max_reinits`` consecutive times (a sticky CUDA fault leaves
+    the process's context unusable).  The round's requests fail with
+    this error rather than being answered from the CPU, which would hide
+    a faulty card or kernel behind answers that still certify; only a
+    process restart heals the card."""
+
+    kind = "backend_lost"
 
 
 class FleetUnavailableError(QueueFullError):

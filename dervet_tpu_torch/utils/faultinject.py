@@ -81,7 +81,7 @@ Two activation paths:
                                          DERVET_TPU_FAULT_DEVICE_LOSS_N=3
                                          fires 3 consecutive losses
                                          (default 1) — drills N-failed-
-                                         re-inits -> CPU failover
+                                         re-inits -> a lost round
       DERVET_TPU_FAULT_STALE_SEED=1      deterministically corrupt window
                                          1's WARM-START seed (x and y)
                                          before the seeded solve (scale
@@ -256,7 +256,7 @@ class FaultPlan:
         # device_loss: kill the backend from inside a solve call —
         # armed after `device_loss_after` solve calls complete, fires
         # `device_loss_n` consecutive times (so N-failed-re-init ->
-        # CPU-failover ladders are drillable), then the backend "heals"
+        # lost-round ladders are drillable), then the backend "heals"
         self.device_loss = bool(device_loss)
         self.device_loss_after = int(device_loss_after)
         self.device_loss_n = int(device_loss_n)
@@ -659,8 +659,8 @@ def maybe_overload() -> bool:
 def maybe_device_loss() -> None:
     """``device_loss`` injection point, called at the top of each solve
     call: when due, raise the injected backend-death error — exactly
-    where a real XlaRuntimeError would surface — so the service's
-    teardown / warmup re-init / checkpoint replay / CPU failover chain
+    where a real CUDA runtime error would surface — so the service's
+    teardown / warmup re-init / checkpoint replay / lost-round chain
     is exercised end to end."""
     from .errors import DeviceLossError
     plan = get_plan()

@@ -6,7 +6,9 @@ charges, Reliability; two months) goes through both CLIs' ``main`` on
 exact HiGHS: every output CSV is byte-identical, and so are the
 ``design`` and ``montecarlo`` subcommands' deterministic artifacts.  The
 port's CLI exits 75 when a run is preempted, and non-zero, naming the
-subcommand, for the JAX package's subcommands it does not carry yet.
+subcommand, for the JAX package's subcommands it does not carry yet
+(``portfolio``, ``fleet``); ``serve --once`` on the CPU device serves a
+spool and exits 0, and ``status`` and ``trace`` read what it published.
 """
 import filecmp
 import subprocess
@@ -111,12 +113,66 @@ def test_cli_exits_75_when_preempted(tmp_path, monkeypatch):
     assert exc.value.code == 75
 
 
-@pytest.mark.parametrize("sub", cli.UNPORTED_SUBCOMMANDS)
+# the JAX package's subcommands beside solve, design and montecarlo
+JAX_SUBCOMMANDS = ("serve", "portfolio", "fleet", "status", "trace")
+
+
+@pytest.mark.parametrize("sub", JAX_SUBCOMMANDS)
 def test_unported_subcommands_exit_nonzero(sub, capsys):
+    """Called without arguments, each exits non-zero: the subcommands
+    the port does not carry yet (portfolio, fleet) with status 2 naming
+    themselves, the ported ones (serve, status, trace) from their own
+    parser's usage error."""
     with pytest.raises(SystemExit) as exc:
-        cli.main([sub, "anything"])
+        cli.main([sub])
     assert exc.value.code != 0
-    assert f"{sub!r} subcommand is not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if sub in cli.UNPORTED_SUBCOMMANDS:
+        assert exc.value.code == cli.EXIT_UNPORTED
+        assert f"{sub!r} subcommand is not ported" in err
+    else:
+        assert "not ported" not in err
+        assert f"usage: dervet_tpu_torch {sub}" in err
+
+
+def test_unported_subcommands_are_the_fleet_and_portfolio():
+    assert set(cli.UNPORTED_SUBCOMMANDS) == {"portfolio", "fleet"}
+
+
+def test_serve_status_trace_subcommands(tmp_path, capsys):
+    """``serve SPOOL --once`` on the CPU device serves a pickled request
+    and exits 0; ``status`` reads its heartbeat and telemetry, ``trace``
+    stitches the request's exported span tree; both exit 0."""
+    import pickle
+    spool = tmp_path / "spool"
+    (spool / "incoming").mkdir(parents=True)
+    cases = dict(enumerate(benchlib.synthetic_sensitivity_cases(
+        2, months=1)))
+    (spool / "incoming" / "req1.pkl").write_bytes(
+        pickle.dumps({"cases": cases, "priority": 0}))
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["serve", str(spool), "--once", "--backend", "torch",
+                  "--device", "cpu", "--heartbeat-s", "0.05"])
+    assert exc.value.code == 0
+    out = spool / "results" / "req1"
+    assert (out / "run_health.req1.json").exists()
+    assert (out / "trace.req1.json").exists()
+    assert (spool / "done" / "req1.pkl").exists()
+    assert (spool / "heartbeat.json").exists()
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["status", str(spool)])
+    assert exc.value.code == 0
+    table = capsys.readouterr().out
+    assert "completed 1" in table
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["trace", "req1", str(spool)])
+    assert exc.value.code == 0
+    tree = capsys.readouterr().out
+    assert "request" in tree and "batch_round" in tree
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["trace", "nobody", str(spool)])
+    assert exc.value.code == 3
 
 
 def test_module_entry_point_leaves_jax_unloaded():

@@ -20,7 +20,9 @@ once; Reliability's outage walks on the card equal their CPU run; a full
 solve on the card gives the CPU solve's statuses, objectives within the
 solver's ``eps_rel`` and iteration counts within one check window; a small
 ``run_design`` and ``run_montecarlo`` on the card give the CPU run's
-finalists and pinned samples, and the Monte-Carlo replay is byte-identical.
+finalists and pinned samples, and the Monte-Carlo replay is byte-identical;
+the scenario service warms the card at start and serves two coalesced
+requests in one round on the banded kernel.
 """
 import numpy as np
 import pytest
@@ -454,3 +456,55 @@ def test_run_montecarlo_on_card_matches_cpu(cuda):
     assert _rel(a["objective"][screen], b["objective"][screen]).max() < 1e-3
     assert _rel(a["objective"][~screen], b["objective"][~screen]).max() \
         < 2e-4
+
+
+@pytest.mark.cuda
+def test_service_on_card_coalesces_two_requests(cuda):
+    """The scenario service with ``device=None``, the card warmed as
+    ``start`` warms it, serves two requests (3 + 5 January windows with the
+    daily-cycle rows, 776 x 2976, the shape and batch 8 ``chip_smoke.py``
+    phase 2 checks) in one round driven from another thread: one
+    cross-request group on the banded kernel, every window certified,
+    objectives within 1e-6 of a solo solve of the same cases on the
+    card."""
+    import threading
+
+    from dervet_tpu_torch.api import DERVET
+    from dervet_tpu_torch.device import warmup_device
+    from dervet_tpu_torch.service import ScenarioService
+
+    def cases(n):
+        return dict(enumerate(benchlib.synthetic_sensitivity_cases(
+            n, months=1, daily_cycle_limit=1)))
+
+    # warmed as ``start`` warms it, with no batcher thread: this thread
+    # drives the round on another
+    svc = ScenarioService(max_wait_s=0.0)
+    svc.device_info = warmup_device(svc.device)
+    assert svc.device == cuda
+    assert svc.device_info["platform"] == "gpu"
+    assert svc.device_info["device_kind"] == torch.cuda.get_device_name(0)
+    fa = svc.submit(cases(3), request_id="a")
+    fb = svc.submit(cases(5), request_id="b")
+    fused_chunk.reset_launch_counts()
+    served = []
+    t = threading.Thread(target=lambda: served.append(svc.run_once()))
+    t.start()
+    t.join()
+    launches = dict(fused_chunk.LAUNCHES)
+    assert served == [2]
+    (g,) = svc.last_round_ledger["groups"]
+    assert (g["m"], g["n"], g["batch"], g["kernel"]) == \
+        (776, 2976, 8, fused_chunk.KERNEL_BANDED)
+    assert sorted(g["requests"]) == ["a", "b"] and g["device"] == "cuda:0"
+    assert launches[fused_chunk.KERNEL_BANDED] == g["kernel_launches"] > 0
+    res = fb.result(0)
+    assert fa.result(0).run_health["certification"]["windows_certified"] \
+        == 3
+    assert res.run_health["certification"]["windows_certified"] == 5
+    solo = DERVET.from_cases(cases(5)).solve(backend="torch")
+    for k, inst in solo.instances.items():
+        want = inst.objective_values["Total Objective"].to_numpy()
+        got = res.instances[k].objective_values["Total Objective"].to_numpy()
+        assert _rel(got, want).max() < 1e-6
+    svc.close()
