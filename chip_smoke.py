@@ -34,9 +34,10 @@ Phases:
                from the mid-solve state and, up to 2,048, from a
                refinement round's seeded start, each pair's device time
                beside its bound, and the widest groups' real batches;
-               then the dense kernel at the pairs phase 10 launches (the
-               weekly structure at the bucket widths 8-512, the 24-hour
-               remainder at 8, the service's warm-up LP at 8);
+               then the dense kernel at the pairs phases 10-12 launch
+               (the weekly structure at the bucket widths 8-512, the
+               24-hour remainder at 8, both also with the daily-cycle
+               rows, and the service's warm-up LP at 8);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -109,11 +110,50 @@ Phases:
                4) and a Monte-Carlo request (128 samples), each repeated
                with no solver built; then ``python -m dervet_tpu_torch
                serve SPOOL --once`` in a process of its own on two
-               pickled payloads and a ``portfolio.json`` (refused with a
-               typed error), and ``status SPOOL``.  Each round prints its
+               pickled payloads and a ``portfolio.json`` (4 sites of two
+               weekly windows, answered and certified on the card), and
+               ``status SPOOL``.  Each round prints its
                wall split, request latency p50/p99, windows per device
                batch, launches by kernel, solver builds and hits, seeded
-               and substituted windows and peak device memory.
+               and substituted windows and peak device memory;
+ 11. fleet   — two replicas (``python -m dervet_tpu_torch serve SPOOL
+               --backend torch --device cuda:0``, each a process with a
+               CUDA context of its own on the one card, loading phase 1's
+               library) behind a ``FleetRouter``: 16 monthly cases and 8
+               weekly cases (both with the daily-cycle rows: both
+               kernels) go to different replicas, a same-structure
+               request follows its structure, an exact repeat is
+               answered from the request cache (no replica, byte-
+               identical artifacts), a delta re-solves only its edited
+               month; then the sticky-fault drill: one replica is
+               replaced by one with ``DERVET_TPU_FAULT_DEVICE_LOSS=
+               sticky`` in its environment, which dies of a real device-
+               side assert on its first solve (exit 69, its request left
+               admitted), the router re-routes the request to the
+               survivor, which answers it once, certified, within 1e-6 of
+               an undisturbed solve; the ``FleetSupervisor`` respawns the
+               dead replica at the next epoch with its warm import, and
+               it answers a further request (restarts 1, quarantined 0,
+               failovers >= 1, no request lost).  Prints each replica's
+               spawn-to-first-heartbeat time, the respawn time, each
+               request's latency and replica, launches by kernel for each
+               replica (from its solve ledgers, every group at a pair
+               phase 2 checked), cache hits and each replica's peak
+               device memory (from the metrics it writes as it drains);
+ 12. portfolio — ``solve_portfolio(backend="torch")`` at the JAX
+               package's scale shape: 64 sites x 336 hours in weekly
+               windows, the export cap from a one-round probe, gap 1e-3,
+               at most 40 outer rounds: converged, the portfolio
+               certificate accepting, every site's windows certified on
+               the card with none on the CPU, every group at a pair phase
+               2 checked, no solver built after round 1; each round's
+               regime, wall split, launches, dual-iterate seeding,
+               iterations and warm-start evictions logged; then 8 sites
+               against ``monolithic_reference`` (HiGHS on the coupled LP)
+               within the gap tolerance, and 16 sites in 2 shards over
+               phase 11's fleet: each shard on one replica round after
+               round, objective and duals within 1e-6 of the monolithic
+               card solve, bytes on the wire by round logged.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -198,6 +238,9 @@ REAL_BATCHES = {744: (3584, 7168), 720: (4096,), 672: ()}
 # compacts them through, the 24-hour remainder at 8, and the service's
 # warm-up LP (``device._warmup_lp``, dense) at its batch of 8
 DENSE_PAIRS = {168: (8, 32, 128, 512), 24: (8,)}
+# the same windows with the daily-cycle rows (phase 11's weekly request,
+# 8 cases: 416 weekly windows padded to 512 and the 24-hour remainder)
+DAILY_DENSE_PAIRS = {168: (8, 32, 128, 512), 24: (8,)}
 WARMUP_BATCH = 8
 # phase 10 (the scenario service, one warm ScenarioService on the card):
 # the coalesced round's monthly requests (cases with the daily-cycle
@@ -222,6 +265,37 @@ SERVE_MONTHS = 12
 # card, and the drill's replay against an undisturbed answer
 SERVE_RTOL = 1e-6
 SERVE_SPOOL_TIMEOUT_S = 300
+# the spool's portfolio.json: sites of two weekly windows (phase 12's
+# shape), the export cap 500 kW a site under the uncoupled peak
+SERVE_PORTFOLIO_SITES = 4
+# phase 11 (the fleet): two replicas on the card; the monthly request
+# (cases with the daily-cycle rows, banded kernel) and the weekly one
+# (also with the daily-cycle rows: a dense structure of its own, so no
+# replica holds warm-start entries of the portfolio's sites, whose
+# weekly windows have none, before phase 12 shards over them); the
+# same-structure request's energy factor; the drill's request (a
+# structure of its own: the monthly cases over six months) and the
+# further request after the respawn; the armed replica's environment
+FLEET_REPLICAS = ("r0", "r1")
+FLEET_DEVICE = "cuda:0"
+FLEET_MONTHLY, FLEET_WEEKLY = 16, 8
+FLEET_NEAR_SCALE = 1.01
+FLEET_DELTA_MONTH = 3
+FLEET_DRILL_MONTHS, FLEET_DRILL_SCALE = 6, 0.98
+FLEET_AFTER, FLEET_AFTER_SCALE = 8, 0.97
+FLEET_DRILL_ENV = {"DERVET_TPU_FAULT_DEVICE_LOSS": "sticky"}
+FLEET_BEAT_S, FLEET_HEARTBEAT_S = 0.25, 60.0
+FLEET_TIMEOUT_S = 600
+# phase 12 (the portfolio): the JAX package's scale shape
+# (``bench.py`` ``portfolio_scale_leg``, ``BENCH_r08.json``
+# ``portfolio_scale``): 64 sites x 336 hours in weekly windows, gap 1e-3,
+# at most 40 outer rounds; 8 sites against HiGHS on the monolithic LP;
+# 16 sites in 2 shards over phase 11's fleet
+PORTFOLIO_SITES, PORTFOLIO_EXACT_SITES, PORTFOLIO_FLEET_SITES = 64, 8, 16
+PORTFOLIO_HOURS, PORTFOLIO_WINDOW = 336, 168
+PORTFOLIO_SITE_WINDOWS = 2
+PORTFOLIO_GAP, PORTFOLIO_MAX_OUTER = 1e-3, 40
+PORTFOLIO_SHARDS = 2
 
 
 def log(*a):
@@ -693,9 +767,9 @@ def pair_phase(records):
     mid-solve state and, up to ``SEEDED_MAX_BATCH``, from a refinement
     round's seeded start; then each pair's device time a launch beside
     its bound, and the widest groups' real batches timed too (the
-    padding's cost); then the dense kernel at the pairs phase 10
-    launches (``DENSE_PAIRS``, the warm-up LP), from the mid-solve
-    state.  Returns {(m, n, B): record}."""
+    padding's cost); then the dense kernel at the pairs phases 10-12
+    launch (``DENSE_PAIRS``, ``DAILY_DENSE_PAIRS``, the warm-up LP), from
+    the mid-solve state.  Returns {(m, n, B): record}."""
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
@@ -753,6 +827,9 @@ def pair_phase(records):
     from dervet_tpu_torch.device import _warmup_lp
     weekly = window_lps(168, 0)
     dense = [(f"weekly {T}h", weekly[T], DENSE_PAIRS[T]) for T in DENSE_PAIRS]
+    daily = window_lps(168, 1)
+    dense += [(f"weekly {T}h, daily-cycle rows", daily[T],
+               DAILY_DENSE_PAIRS[T]) for T in DAILY_DENSE_PAIRS]
     dense.append(("warm-up", _warmup_lp(), (WARMUP_BATCH,)))
     rec = records[fc.KERNEL_DENSE]
     for name, lp, batches in dense:
@@ -1606,20 +1683,17 @@ class ServeRound:
             f"device memory {self.peak / 2 ** 30:.3f} GiB")
 
 
-def check_served_groups(led, pairs, what, launched=True):
-    """Every device group of a served round that launched a kernel ran
-    the chunk kernel its op takes, with no fallback, at (structure,
-    batch) pairs phase 2 held against the plain version: its launch
-    width (``padded_to``, else its members) and every bucket the solver
-    compacted it to.  ``launched``: the round must have launched."""
-    from dervet_tpu_torch import benchlib
+def check_ledger_groups(led, pairs, what):
+    """A solve ledger (a served round's, a replica's request slice, a
+    portfolio dispatch's): every device group that launched ran the
+    chunk kernel its op takes, with no fallback, on cuda:0, at
+    (structure, batch) pairs phase 2 checked — its launch width and
+    every bucket it compacted to; none solved on the CPU.  Returns its
+    launches by kernel."""
     from dervet_tpu_torch.ops import fused_chunk as fc
-    led = benchlib.validate_solve_ledger(led)
-    dev = [g for g in led["groups"] if g.get("backend") == "torch"]
-    check(not launched or any(g["kernel_launches"] for g in dev),
-          f"{what}: no group launched a kernel")
-    for g in dev:
-        if not g["kernel_launches"]:
+    launches = {}
+    for g in led.get("groups", ()):
+        if g.get("backend") != "torch" or not g.get("kernel_launches"):
             continue
         widths = [g.get("padded_to", g["batch"])] + [
             b for b, _ in g.get("bucket_occupancy") or ()]
@@ -1631,10 +1705,25 @@ def check_served_groups(led, pairs, what, launched=True):
                   and "kernel_fallback" not in g,
                   f"{what}: group m={g['m']} n={g['n']} ran {g['kernel']} "
                   f"({g.get('kernel_fallback')})")
-        check(g["device"] == "cuda:0", f"{what}: group on {g['device']}")
-    check((led["totals"].get("cpu_rescued") or 0) == 0,
-          f"{what}: {led['totals'].get('cpu_rescued')} instances solved "
-          "on the CPU")
+        check(g["device"] == FLEET_DEVICE, f"{what}: group on {g['device']}")
+        launches[g["kernel"]] = launches.get(g["kernel"], 0) \
+            + g["kernel_launches"]
+    totals = led.get("round_totals") or led.get("totals") or {}
+    check((totals.get("cpu_rescued") or 0) == 0,
+          f"{what}: {totals.get('cpu_rescued')} instances solved on the CPU")
+    return launches
+
+
+def check_served_groups(led, pairs, what, launched=True):
+    """Every device group of a served round that launched a kernel ran
+    the chunk kernel its op takes, with no fallback, on cuda:0, at
+    (structure, batch) pairs phase 2 held against the plain version
+    (``check_ledger_groups``).  ``launched``: the round must have
+    launched."""
+    from dervet_tpu_torch import benchlib
+    led = benchlib.validate_solve_ledger(led)
+    launches = check_ledger_groups(led, pairs, what)
+    check(not launched or launches, f"{what}: no group launched a kernel")
     return led
 
 
@@ -1983,8 +2072,25 @@ def serve_phase(records, pairs):
             with open(os.path.join(incoming, f"{rid}.pkl"), "wb") as fh:
                 pickle.dump({"cases": served_cases(n, 1.0 + 0.05 * (i + 1)),
                              "priority": 0}, fh)
+        from dervet_tpu_torch.portfolio import PortfolioSpec, \
+            solve_portfolio
+        from dervet_tpu_torch.portfolio.service import \
+            synthetic_portfolio_members
+        shape = {"sites": SERVE_PORTFOLIO_SITES, "hours": PORTFOLIO_HOURS,
+                 "window": PORTFOLIO_WINDOW}
+        probe = solve_portfolio(PortfolioSpec(
+            members=synthetic_portfolio_members(
+                SERVE_PORTFOLIO_SITES, hours=PORTFOLIO_HOURS,
+                window=PORTFOLIO_WINDOW),
+            export_cap_kw=1e9, max_outer=1), backend="cpu")
         with open(os.path.join(incoming, "folio.json"), "w") as fh:
-            json.dump({"portfolio": {"sites": []}}, fh)
+            json.dump({"portfolio": {
+                "synthetic_members": shape,
+                "export_cap_kw": float(
+                    probe.aggregate["net_export"].max())
+                - 500.0 * SERVE_PORTFOLIO_SITES,
+                "gap_tol": PORTFOLIO_GAP,
+                "max_outer": PORTFOLIO_MAX_OUTER}}, fh)
         here = os.path.dirname(os.path.abspath(__file__))
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -2020,14 +2126,24 @@ def serve_phase(records, pairs):
             log(f"[serve] spool {rid}: {len(csvs)} CSVs, "
                 f"{n * SERVE_MONTHS} windows "
                 f"certified, launches {sum(g.get('kernel_launches', 0) for g in sl['groups'])}")
-        with open(os.path.join(spool, "failed",
-                               "folio.json.error.json")) as fh:
-            err = json.load(fh)
-        check(err["error"] == "ParameterError"
-              and "portfolio/" in err["message"], f"serve spool: {err}")
+        with open(os.path.join(spool, "results", "folio",
+                               "portfolio.json")) as fh:
+            folio = json.load(fh)
+        cert = folio["certification"]
+        check(folio["converged"] and folio["fidelity"] == "certified"
+              and cert["verdict"] in ("certified", "certified_loose")
+              and cert["per_site"]["all_certified"]
+              and cert["per_site"]["windows_total"]
+              == SERVE_PORTFOLIO_SITES * PORTFOLIO_SITE_WINDOWS,
+              f"serve spool portfolio: converged {folio['converged']}, "
+              f"{cert['verdict']}, {cert['per_site']}")
+        log(f"[serve] spool portfolio: {folio['outer_rounds']} rounds, gap "
+            f"{folio['gap_rel']}, verdict {cert['verdict']}, "
+            f"{cert['per_site']['windows_total']} windows certified")
         with open(os.path.join(spool, "service_metrics.json")) as fh:
             sm = json.load(fh)
-        check(sm["requests"]["completed"] == 2
+        check(sm["requests"]["completed"] == 3
+              and sm["portfolio"]["requests"] == 1
               and sm["service"]["device"]["platform"] == "gpu",
               f"serve spool metrics: {sm['requests']}")
         log(f"[serve] spool metrics: requests {sm['requests']}, latency "
@@ -2044,6 +2160,646 @@ def serve_phase(records, pairs):
         records[k].setdefault("launches_by_run", {})["serve"] = n
     log(f"[serve] launches in this process {total}")
     check(all(total.values()), f"serve: a kernel never launched {total}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fleet — replicas on cuda:0 behind the router
+# ---------------------------------------------------------------------------
+
+def mps_running() -> bool:
+    """Is an MPS control daemon up?  Under MPS one client's fault can
+    reach the others' contexts; without it each replica's context is
+    its own."""
+    try:
+        out = subprocess.run(["pgrep", "-f", "nvidia-cuda-mps"],
+                             capture_output=True, text=True, timeout=10)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return bool(out.stdout.strip())
+
+
+def replica_ledgers(spool):
+    """{rid: solve ledger} of every answered request in a replica's
+    spool (``results/<rid>/solve_ledger.<rid>.json``, or the ledger of a
+    portfolio shard's pickled answer)."""
+    import os
+    from dervet_tpu_torch.portfolio.shard import load_shard_result
+    out = {}
+    root = os.path.join(spool, "results")
+    for rid in sorted(os.listdir(root)) if os.path.isdir(root) else ():
+        path = os.path.join(root, rid, f"solve_ledger.{rid}.json")
+        if os.path.exists(path):
+            with open(path) as fh:
+                out[rid] = json.load(fh)
+            continue
+        shard = load_shard_result(os.path.join(root, rid))
+        if shard is not None and shard.ledger is not None:
+            out[rid] = shard.ledger
+    return out
+
+
+def replica_peak_memory(spool):
+    """The replica's peak device memory (GiB) from the metrics its serve
+    loop wrote when it drained, or None."""
+    import os
+    try:
+        with open(os.path.join(spool, "service_metrics.json")) as fh:
+            peak = json.load(fh)["service"].get("peak_memory_bytes")
+    except (OSError, ValueError, KeyError):
+        return None
+    return None if peak is None else round(peak / 2 ** 30, 3)
+
+
+def windows_of(cases):
+    """The optimization windows of a request's cases (monthly, or
+    fixed-length windows with a shorter remainder)."""
+    total = 0
+    for c in cases.values():
+        idx = c.datasets.time_series.index
+        n = c.scenario.get("n")
+        if n == "month":
+            total += len(set(zip(idx.year, idx.month)))
+        else:
+            total += -(-len(idx) // int(n))
+    return total
+
+
+def check_routed_certified(res, n_windows, what):
+    """A fleet answer: its run-health slice certifies every window, none
+    on the CPU."""
+    health = res.load_run_health()
+    check(health is not None, f"{what}: no run-health artifact")
+    cert = health["certification"]
+    check(health.get("fidelity", "certified") == "certified"
+          and cert["enabled"] and cert["windows_certified"] == n_windows
+          and cert["windows"]["rejected_final"] == 0
+          and health["windows"]["cpu_fallback"] == 0,
+          f"{what}: {cert['windows']} of {n_windows} windows certified, "
+          f"cpu_fallback {health['windows']['cpu_fallback']}")
+
+
+def csv_bytes(d):
+    import os
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d)) if f.endswith(".csv")}
+
+
+class Fleet:
+    """Phase 11's fleet: port replicas (``python -m dervet_tpu_torch
+    serve SPOOL --backend torch --device cuda:0``, each a process with a
+    CUDA context of its own on the one card) behind a ``FleetRouter``;
+    phase 12 shards a portfolio over it."""
+
+    def __init__(self, root):
+        from dervet_tpu_torch.service import FleetRouter
+        self.root, self.logs, self.handles = root, [], {}
+        self.router = FleetRouter([], fleet_dir=f"{root}/fleet",
+                                  heartbeat_timeout_s=FLEET_HEARTBEAT_S,
+                                  breaker_opts={"cooldown_s": 1.0})
+        self.supervisor = None
+
+    def spool(self, name):
+        return f"{self.root}/{name}"
+
+    def spawn(self, name, epoch, env=None):
+        """Spawn one replica and wait for its first heartbeat at this
+        epoch; returns (handle, spawn-to-first-heartbeat seconds)."""
+        from dervet_tpu_torch.service import spawn_replica
+        lg = open(f"{self.root}/{name}.{epoch}.log", "w")
+        self.logs.append(lg)
+        t0 = time.perf_counter()
+        h = spawn_replica(self.spool(name), name=name, backend="torch",
+                          device=FLEET_DEVICE, epoch=epoch, env=env,
+                          heartbeat_s=FLEET_BEAT_S, stdout=lg, stderr=lg)
+        try:
+            return h, self.wait_beat(name, epoch, h, t0)
+        except BaseException:
+            # not adopted yet, so the router's close would not stop it
+            h.process.kill()
+            h.process.wait()
+            raise
+
+    def wait_beat(self, name, epoch, h, t0):
+        path = f"{self.spool(name)}/heartbeat.json"
+        while True:
+            check(h.process.poll() is None,
+                  f"fleet: replica {name} exited {h.process.returncode} "
+                  f"before its first heartbeat ({self.tail(name, epoch)})")
+            try:
+                with open(path) as fh:
+                    if json.load(fh).get("epoch") == epoch:
+                        return time.perf_counter() - t0
+            except (OSError, ValueError):
+                pass
+            check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+                  f"fleet: replica {name} never beat")
+            time.sleep(0.05)
+
+    def tail(self, name, epoch, n=8):
+        try:
+            with open(f"{self.root}/{name}.{epoch}.log") as fh:
+                return " | ".join(fh.read().strip().splitlines()[-n:])
+        except OSError:
+            return ""
+
+    def routable(self, name):
+        """The router has seen the replica beat, its breaker is closed
+        and its published load is fresh (so least-loaded ranks it)."""
+        m = self.router.metrics()["replicas"].get(name) or {}
+        snap = self.router.load_snapshot().get(name) or {}
+        return (m.get("state") == "up"
+                and (m.get("breaker") or {}).get("state") == "closed"
+                and snap.get("published") is not None)
+
+    def wait_routable(self, names):
+        t0 = time.perf_counter()
+        while not all(self.routable(n) for n in names):
+            check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+                  f"fleet: {names} never routable: "
+                  f"{self.router.metrics()['replicas']}")
+            time.sleep(0.05)
+
+    def close(self):
+        """Stop the supervisor, drain and stop every replica (SIGTERM),
+        log each one's peak device memory from its metrics, and remove
+        the spools."""
+        import shutil
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        self.router.close()
+        for lg in self.logs:
+            lg.close()
+        for name in FLEET_REPLICAS:
+            log(f"[fleet] {name} (last epoch) drained: peak device memory "
+                f"{replica_peak_memory(self.spool(name))} GiB")
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def fleet_phase(records, pairs):
+    """Phase 11: two port replicas share cuda:0 behind the fleet router.
+    Two structures go to different replicas by affinity; an exact repeat
+    is answered from the request cache (no replica, byte-identical
+    artifacts); a delta re-solves only its edited month; then the sticky
+    fault drill: one replica is replaced by one with a REAL device-side
+    assert armed in its environment, dies of it on its first solve, its
+    request is re-routed and answered once on the card by the survivor
+    (certified, within 1e-6 of an undisturbed solve), and the supervisor
+    respawns it (epoch + 1, warm import) to answer a further request.
+    Returns the fleet, still up, for phase 12's sharded portfolio."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.service import FleetSupervisor, ReplicaSpec
+    from dervet_tpu_torch.service.server import EXIT_BACKEND_LOST
+    lib = fc.library_path()
+    check(lib.exists(), "fleet: phase 1's kernel library is missing")
+    built = sorted(p.name for p in lib.parent.glob("libfused_chunk-*.so"))
+    check(not any(k.startswith("DERVET_TPU_FAULT") for k in os.environ),
+          "fleet: a fault plan is armed in the smoke's own environment")
+    log(f"[fleet] MPS {'running' if mps_running() else 'not running'}; "
+        f"replicas load {lib.name}")
+    fleet = Fleet(tempfile.mkdtemp(prefix="fleet-"))
+    router = fleet.router.start()
+    lat = []
+
+    def ask(cases, rid, n_windows, what, **kw):
+        fut = router.submit(cases, request_id=rid,
+                            deadline_s=FLEET_TIMEOUT_S, **kw)
+        res = fut.result(timeout=FLEET_TIMEOUT_S)
+        if not res.cached:
+            check_routed_certified(res, n_windows, what)
+        lat.append((rid, res.replica, res.latency_s))
+        log(f"[fleet] {what} ({rid}): replica {res.replica}, latency "
+            f"{res.latency_s:.3f} s, recovered {res.recovered}, cached "
+            f"{res.cached}")
+        return res
+
+    try:
+        beats = {}
+        for name in FLEET_REPLICAS:
+            h, beats[(name, 1)] = fleet.spawn(name, 1)
+            fleet.handles[name] = h
+            router.adopt_replica(h)
+        fleet.wait_routable(FLEET_REPLICAS)
+        for (name, ep), s in beats.items():
+            log(f"[fleet] {name} epoch {ep}: spawn to first heartbeat "
+                f"{s:.2f} s")
+        # 1. two structures by affinity (both kernels)
+        monthly = served_cases(FLEET_MONTHLY)
+        weekly = served_cases(FLEET_WEEKLY, n=168)
+        n_m, n_w = windows_of(monthly), windows_of(weekly)
+        fm = router.submit(monthly, request_id="fm0",
+                           deadline_s=FLEET_TIMEOUT_S)
+        fw = router.submit(weekly, request_id="fw0",
+                           deadline_s=FLEET_TIMEOUT_S)
+        rm, rw = (f.result(timeout=FLEET_TIMEOUT_S) for f in (fm, fw))
+        check_routed_certified(rm, n_m, "fleet monthly")
+        check_routed_certified(rw, n_w, "fleet weekly")
+        for r in (rm, rw):
+            lat.append((r.rid, r.replica, r.latency_s))
+            log(f"[fleet] {r.rid}: replica {r.replica}, latency "
+                f"{r.latency_s:.3f} s")
+        check({rm.replica, rw.replica} == set(FLEET_REPLICAS),
+              f"fleet: both structures on {rm.replica}/{rw.replica}")
+        home = rm.replica
+        near = ask(served_cases(FLEET_MONTHLY, FLEET_NEAR_SCALE), "fm1", n_m,
+                   "same structure, new content")
+        check(near.replica == home, f"fleet: affinity sent fm1 to "
+                                    f"{near.replica}, not {home}")
+        # 2. an exact repeat: the request cache, no replica, same bytes
+        admitted = {n: len(replica_ledgers(fleet.spool(n)))
+                    for n in FLEET_REPLICAS}
+        rep = ask(served_cases(FLEET_MONTHLY), "fm2", n_m, "exact repeat")
+        check(rep.cached and rep.replica == "request_cache",
+              f"fleet: the repeat was not a cache hit ({rep.replica})")
+        check(csv_bytes(rep.results_dir) == csv_bytes(rm.results_dir),
+              "fleet: the cached answer's CSVs differ from the original")
+        check({n: len(replica_ledgers(fleet.spool(n)))
+               for n in FLEET_REPLICAS} == admitted,
+              "fleet: the cache hit reached a replica")
+        # 3. a delta: one month of one case changes
+        edited = served_cases(FLEET_MONTHLY)
+        ts = edited[0].datasets.time_series
+        month = ts.index.month == FLEET_DELTA_MONTH
+        col = ts.columns[0]
+        ts.loc[month, col] = ts.loc[month, col] * 1.01
+        fd = router.submit_delta(served_cases(FLEET_MONTHLY), edited,
+                                 request_id="fd0",
+                                 deadline_s=FLEET_TIMEOUT_S)
+        rd = fd.result(timeout=FLEET_TIMEOUT_S)
+        lat.append((rd.rid, rd.replica, rd.latency_s))
+        check_routed_certified(rd, n_m, "fleet delta")
+        led = replica_ledgers(fleet.spool(rd.replica))["fd0"]
+        warm = [g.get("warm") or {} for g in led["groups"]]
+        subst = sum(int(w.get("substituted") or 0) for w in warm)
+        check(rd.replica == home and subst == n_m - 1,
+              f"fleet delta: {subst} of {n_m} windows substituted on "
+              f"{rd.replica}")
+        log(f"[fleet] delta (fd0): replica {rd.replica}, latency "
+            f"{rd.latency_s:.3f} s, {subst} of {n_m} windows substituted, "
+            f"{n_m - subst} re-solved")
+
+        # 4. the sticky-fault drill.  The replica on the first name is
+        # replaced by one armed with a real device-side assert on its
+        # first solve call (its environment only); a request of a new
+        # structure ranks it first (least-loaded, name order)
+        victim, survivor = FLEET_REPLICAS
+        drill = served_cases(FLEET_MONTHLY, FLEET_DRILL_SCALE,
+                             months=FLEET_DRILL_MONTHS)
+        n_drill = windows_of(drill)
+        undisturbed = f"{fleet.root}/undisturbed"
+        solve_cases(drill, "torch")[0].save_as_csv(undisturbed)
+        check(router.remove_replica(victim), "fleet: victim busy")
+        old = fleet.handles[victim]
+        old.terminate()
+        check(old.process.wait(timeout=120) == 0,
+              f"fleet: {victim} did not drain cleanly")
+        log(f"[fleet] {victim} epoch 1 drained: peak device memory "
+            f"{replica_peak_memory(fleet.spool(victim))} GiB")
+        armed, s = fleet.spawn(victim, 2, env=FLEET_DRILL_ENV)
+        log(f"[fleet] {victim} epoch 2 (sticky device loss armed): spawn "
+            f"to first heartbeat {s:.2f} s")
+        fleet.handles[victim] = armed
+        router.adopt_replica(armed)
+        fleet.wait_routable(FLEET_REPLICAS)
+        sup = FleetSupervisor(
+            router, [ReplicaSpec(fleet.spool(n), name=n, device=FLEET_DEVICE,
+                                 heartbeat_s=FLEET_BEAT_S)
+                     for n in FLEET_REPLICAS],
+            backoff_base_s=0.1, tick_s=0.05)
+        fleet.supervisor = sup.start()
+        t_drill = time.perf_counter()
+        ra = ask(drill, "fk0", n_drill, "drill request")
+        rc = armed.process.wait(timeout=FLEET_TIMEOUT_S)
+        t_dead = time.perf_counter()
+        with open(f"{fleet.root}/{victim}.2.log") as fh:
+            vlog = fh.read()
+        assert_line = next((ln for ln in vlog.splitlines()
+                            if "device-side assert" in ln), None)
+        log(f"[fleet] {victim} epoch 2 exited {rc} "
+            f"{t_dead - t_drill:.2f} s after the drill request; "
+            f"its log: {assert_line}")
+        check(rc == EXIT_BACKEND_LOST,
+              f"fleet: the armed replica exited {rc}, not "
+              f"{EXIT_BACKEND_LOST} ({fleet.tail(victim, 2)})")
+        check(assert_line is not None,
+              "fleet: the armed replica died without a device-side assert")
+        from dervet_tpu_torch.service import ServiceJournal
+        states = ServiceJournal.replay_path(
+            f"{fleet.spool(victim)}/service_journal.jsonl")
+        check(states.get("fk0", {}).get("state") == "admitted",
+              f"fleet: the dead replica journaled fk0 as "
+              f"{states.get('fk0')}")
+        check(not os.path.exists(
+            f"{fleet.spool(victim)}/failed/fk0.pkl"),
+            "fleet: the dead replica wrote a failed marker")
+        check(ra.replica == survivor and ra.recovered,
+              f"fleet: fk0 answered by {ra.replica} "
+              f"(recovered {ra.recovered})")
+        led = replica_ledgers(fleet.spool(survivor))["fk0"]
+        check_ledger_groups(led, pairs, "fleet drill")
+        gap, same = csv_objective_gap(ra.results_dir, undisturbed)
+        log(f"[fleet] drill answer vs the undisturbed solve: largest "
+            f"rel gap {gap:.3e}, bit-equal {same}")
+        check(gap <= SERVE_RTOL, f"fleet drill: gap {gap:.3e}")
+        # the supervisor's respawn at epoch 3, warm
+        while not (sup.snapshot()["replicas"][victim]["epoch"] == 3
+                   and fleet.routable(victim)):
+            check(time.perf_counter() - t_dead < FLEET_TIMEOUT_S,
+                  f"fleet: {victim} never respawned "
+                  f"{sup.snapshot()['replicas'][victim]}")
+            time.sleep(0.05)
+        fleet.handles[victim] = router.replicas[victim]
+        log(f"[fleet] {victim} respawned at epoch 3: death to routable "
+            f"{time.perf_counter() - t_dead:.2f} s")
+        further = served_cases(FLEET_AFTER, FLEET_AFTER_SCALE)
+        after = ask(further, "fa0", windows_of(further), "after respawn")
+        check(after.replica == victim,
+              f"fleet: the further request went to {after.replica}")
+        snap = sup.snapshot()
+        m = router.metrics()["routing"]
+        log(f"[fleet] supervisor {json.dumps(snap['counters'])}; "
+            f"{victim} {json.dumps(snap['replicas'][victim])}; routing "
+            f"{json.dumps(m)}")
+        check(snap["counters"]["restarts"] == 1
+              and snap["counters"]["quarantined"] == 0
+              and snap["replicas"][victim]["warm_imports"] == 1,
+              f"fleet supervisor: {snap['counters']}")
+        check(m["failovers"] >= 1 and m["failed"] == 0
+              and m["request_cache_hits"] == 1,
+              f"fleet routing: {m}")
+        # launches by kernel for each replica, from its solve ledgers
+        total = {}
+        for name in FLEET_REPLICAS:
+            by = {}
+            for rid, led in replica_ledgers(fleet.spool(name)).items():
+                for k, n in check_ledger_groups(
+                        led, pairs, f"fleet {name} {rid}").items():
+                    by[k] = by.get(k, 0) + n
+                    total[k] = total.get(k, 0) + n
+            log(f"[fleet] {name}: launches {by}")
+        check(all(total.get(k) for k in records),
+              f"fleet: a kernel never launched on the replicas {total}")
+        check(sorted(p.name for p in lib.parent.glob(
+            "libfused_chunk-*.so")) == built,
+            "fleet: a replica built the kernel library again")
+        for k in records:
+            records[k].setdefault("launches_by_run", {})["fleet"] = \
+                total.get(k, 0)
+        log(f"[fleet] request latencies {json.dumps(lat)}")
+        return fleet
+    except BaseException:
+        fleet.close()
+        raise
+
+
+def csv_objective_gap(dir_a, dir_b):
+    """(max per-window relative gap, bit-equal) of the ``Total
+    Objective`` columns of two answers' ``objective_values*.csv`` (the
+    same writer on both sides, so the rows align)."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+    names = sorted(f for f in os.listdir(dir_a)
+                   if f.startswith("objective_values") and f.endswith(".csv"))
+    check(names and names == sorted(
+        f for f in os.listdir(dir_b)
+        if f.startswith("objective_values") and f.endswith(".csv")),
+        "answers hold different cases")
+    worst, same = 0.0, True
+    for f in names:
+        x = pd.read_csv(os.path.join(dir_a, f), index_col=0)[
+            "Total Objective"].to_numpy()
+        y = pd.read_csv(os.path.join(dir_b, f), index_col=0)[
+            "Total Objective"].to_numpy()
+        check(x.shape == y.shape, f"{f}: {x.shape} vs {y.shape}")
+        worst = max(worst, float((np.abs(x - y)
+                                  / np.maximum(np.abs(y), 1.0)).max()))
+        same = same and x.tobytes() == y.tobytes()
+    return worst, same
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the portfolio co-optimization on the card
+# ---------------------------------------------------------------------------
+
+class RoundLog:
+    """``on_round`` hook of ``solve_portfolio``: each outer round's
+    launches by kernel (the counts are read and set to 0 at each round's
+    end), the solver builds so far and the warm-start memory's state."""
+
+    def __init__(self, cache):
+        self.cache, self.rows = cache, []
+
+    def __call__(self, k, result):
+        from dervet_tpu_torch.ops import fused_chunk as fc
+        mem = self.cache.memory.snapshot() if self.cache.memory else {}
+        self.rows.append({"round": k, "launches": dict(fc.LAUNCHES),
+                          "builds": self.cache.builds,
+                          "evictions": mem.get("evictions"),
+                          "hint_entries": mem.get("hint_entries"),
+                          "entries": mem.get("entries")})
+        fc.reset_launch_counts()
+
+
+def portfolio_spec(n_sites, cap=None, **kw):
+    """The JAX package's portfolio scale shape (``bench.py``
+    ``portfolio_scale_leg``): ``n_sites`` synthetic sites of
+    ``PORTFOLIO_HOURS`` hours in weekly windows, the export cap 500 kW a
+    site under the uncoupled fleet's peak (a one-round probe on the
+    card), ``gap_tol`` 1e-3, at most 40 outer rounds."""
+    from dervet_tpu_torch.portfolio import PortfolioSpec, solve_portfolio
+    from dervet_tpu_torch.portfolio.service import \
+        synthetic_portfolio_members
+
+    def members():
+        return synthetic_portfolio_members(
+            n_sites, hours=PORTFOLIO_HOURS, window=PORTFOLIO_WINDOW)
+    if cap is None:
+        probe = solve_portfolio(PortfolioSpec(
+            members=members(), export_cap_kw=1e9, max_outer=1),
+            backend="torch")
+        cap = float(probe.aggregate["net_export"].max()) - 500.0 * n_sites
+    return PortfolioSpec(members=members(), export_cap_kw=cap,
+                         gap_tol=PORTFOLIO_GAP,
+                         max_outer=PORTFOLIO_MAX_OUTER, **kw), cap
+
+
+def check_portfolio(res, n_sites, what):
+    """Converged to the gap, the portfolio certificate accepts, every
+    site's final windows certified on the card, none on the CPU."""
+    cert = res.certification
+    ps = cert["per_site"]
+    check(res.converged and res.gap_rel <= PORTFOLIO_GAP,
+          f"{what}: converged {res.converged}, gap {res.gap_rel}")
+    check(cert["verdict"] in ("certified", "certified_loose"),
+          f"{what}: portfolio certificate {cert['verdict']}")
+    check(ps["all_certified"]
+          and ps["windows_total"] == n_sites * PORTFOLIO_SITE_WINDOWS,
+          f"{what}: per-site certification {ps}")
+    win = (res.run_health or {}).get("windows") or {}
+    check(not win.get("cpu_fallback"), f"{what}: CPU fallback {win}")
+
+
+def add_launches(records, run, launches):
+    for k, n in launches.items():
+        by = records[k].setdefault("launches_by_run", {})
+        by[run] = by.get(run, 0) + n
+
+
+def portfolio_phase(records, pairs, fleet):
+    """Phase 12: the portfolio on the card.  The 64-site scale shape to
+    the 1e-3 gap (every window certified on the card, every group at a
+    pair phase 2 checked, no solver built after round 1); 8 sites against
+    HiGHS on the monolithic coupled LP; 16 sites sharded over phase 11's
+    fleet against the monolithic card solve of the same spec."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.portfolio import monolithic_reference, \
+        solve_portfolio
+    from dervet_tpu_torch.scenario.scenario import SolverCache
+    # 1. the scale shape
+    t0 = time.perf_counter()
+    spec, cap = portfolio_spec(PORTFOLIO_SITES)
+    log(f"[portfolio] {PORTFOLIO_SITES} sites x {PORTFOLIO_SITE_WINDOWS} "
+        f"weekly windows: export cap {cap:.1f} kW from a one-round probe "
+        f"({time.perf_counter() - t0:.2f} s)")
+    cache = SolverCache(pad_grid=True, warm_start=True, device="cuda")
+    rl = RoundLog(cache)
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DispatchLog(extra=("dervet_tpu_torch.scenario.scenario",)) as dl:
+        res = solve_portfolio(spec, backend="torch", solver_cache=cache,
+                              on_round=rl)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_portfolio(res, PORTFOLIO_SITES, "portfolio 64")
+    check(len(dl.calls) == len(rl.rows) == res.outer_rounds,
+          f"portfolio 64: {len(dl.calls)} dispatches, {len(rl.rows)} "
+          f"rounds logged, {res.outer_rounds} outer rounds")
+    total = {}
+    for call, row in zip(dl.calls, rl.rows):
+        got = check_ledger_groups(call["ledger"] or {}, pairs,
+                                  f"portfolio 64 round {row['round']}")
+        check(got == {k: n for k, n in row["launches"].items() if n},
+              f"portfolio 64 round {row['round']}: ledger launches {got} "
+              f"against the counts {row['launches']}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    check(total.get(fc.KERNEL_DENSE), "portfolio 64: no dense launch")
+    builds = [r["builds"] for r in rl.rows]
+    check(len(builds) >= 2 and len(set(builds[1:])) == 1
+          and builds[1] == builds[0],
+          f"portfolio 64: solver builds by round {builds}")
+    for r, row, call in zip(res.rounds, rl.rows, dl.calls):
+        log(f"[portfolio] round {r['round']}: regime {r['regime']}, gap "
+            f"{r['gap_rel']:.3e}, wall {r['wall_s']} s (dispatch "
+            f"{call['wall_s']:.3f} s: LP assembly {call['assembly_s']} s, "
+            f"solve {call['solve_s']} s), launches {row['launches']}, "
+            f"{r['windows']} windows: seeded {r['seeded']} (dual_iterate "
+            f"{r['dual_iterate']}, substituted {r['substituted']}), iters "
+            f"p50 {r['iters_p50']} (seeded {r['iters_p50_seeded']}, cold "
+            f"{r['iters_p50_cold']}), solver builds {row['builds']}, "
+            f"memory entries {row['entries']} hints {row['hint_entries']} "
+            f"evictions {row['evictions']}")
+    later = res.rounds[1:]
+    seeded = sum(r["dual_iterate"] + r["substituted"] for r in later)
+    n_later = sum(r["windows"] for r in later)
+    log(f"[portfolio] 64 sites: {res.outer_rounds} outer rounds in "
+        f"{wall:.2f} s (the JAX package took 14, CPU-measured), regimes "
+        f"{[r['regime'] for r in res.rounds]}, gap {res.gap_rel:.3e}, "
+        f"objective {res.objective_total:.6f}; windows of rounds >= 1 "
+        f"seeded by their own last iterate or substituted {seeded}/"
+        f"{n_later}; iters p50 cold {res.rounds[0]['iters_p50']}, seeded "
+        f"{[r['iters_p50'] for r in later]}; {json.dumps(dl.times())}; "
+        f"launches {total}; peak device memory {peak / 2 ** 30:.3f} GiB; "
+        f"warm-start memory {json.dumps(cache.memory.snapshot())}")
+    add_launches(records, "portfolio", total)
+
+    # 2. exactness: 8 sites against HiGHS on the monolithic coupled LP
+    spec8, cap8 = portfolio_spec(PORTFOLIO_EXACT_SITES)
+    fc.reset_launch_counts()
+    with DispatchLog(extra=("dervet_tpu_torch.scenario.scenario",)) as dl:
+        res8 = solve_portfolio(spec8, backend="torch")
+    add_launches(records, "portfolio", dict(fc.LAUNCHES))
+    check_portfolio(res8, PORTFOLIO_EXACT_SITES, "portfolio 8")
+    for call in dl.calls:
+        check_ledger_groups(call["ledger"] or {}, pairs, "portfolio 8")
+    t0 = time.perf_counter()
+    mono = monolithic_reference(
+        portfolio_spec(PORTFOLIO_EXACT_SITES, cap=cap8)[0])
+    check(mono["status"] == 0, f"portfolio 8: HiGHS status "
+                               f"{mono['status']}")
+    # normalized as the dual loop's own gap (primal minus the dual
+    # bound over 1 + |primal| + |dual bound|): a blend within gap_tol of
+    # its bound is within gap_tol of the optimum between them
+    rel = abs(res8.primal_objective - mono["objective_cx"]) \
+        / (1.0 + abs(res8.primal_objective) + abs(res8.dual_bound))
+    of_opt = abs(res8.primal_objective - mono["objective_cx"]) \
+        / (1.0 + abs(mono["objective_cx"]))
+    log(f"[portfolio] 8 sites: {res8.outer_rounds} rounds, the card's "
+        f"primal {res8.primal_objective:.6f} (dual bound "
+        f"{res8.dual_bound:.6f}) against HiGHS's monolithic optimum "
+        f"{mono['objective_cx']:.6f} ({time.perf_counter() - t0:.2f} s): "
+        f"gap {rel:.3e} (gap_tol {PORTFOLIO_GAP}), "
+        f"{of_opt:.3e} of the optimum")
+    check(rel <= PORTFOLIO_GAP, f"portfolio 8: rel {rel:.3e}")
+
+    # 3. 16 sites sharded over phase 11's fleet, against the monolithic
+    # card solve of the same spec
+    spec16, cap16 = portfolio_spec(PORTFOLIO_FLEET_SITES)
+    fc.reset_launch_counts()
+    mono16 = solve_portfolio(spec16, backend="torch")
+    add_launches(records, "portfolio", dict(fc.LAUNCHES))
+    check_portfolio(mono16, PORTFOLIO_FLEET_SITES, "portfolio 16 mono")
+    t0 = time.perf_counter()
+    res16 = solve_portfolio(
+        portfolio_spec(PORTFOLIO_FLEET_SITES, cap=cap16,
+                       shards=PORTFOLIO_SHARDS)[0],
+        backend="torch", fleet=fleet.router, request_id="pf16")
+    wall = time.perf_counter() - t0
+    check_portfolio(res16, PORTFOLIO_FLEET_SITES, "portfolio 16 fleet")
+    detail = [r["shard_detail"] for r in res16.rounds]
+    homes = {d["shard"]: d["replica"] for d in detail[0]}
+    check(len(set(homes.values())) == PORTFOLIO_SHARDS
+          and all(d["replica"] == homes[d["shard"]]
+                  for rnd in detail[1:] for d in rnd),
+          f"portfolio 16 fleet: shard assignment {detail}")
+    gaps = {"objective": abs(res16.objective_total
+                             - mono16.objective_total)
+            / max(abs(mono16.objective_total), 1.0)}
+    check(sorted(res16.duals) == sorted(mono16.duals),
+          "portfolio 16: different coupling rows")
+    for kind in res16.duals:
+        a = np.asarray(res16.duals[kind], float)
+        b = np.asarray(mono16.duals[kind], float)
+        gaps[kind] = float(np.max(np.abs(a - b)
+                                  / np.maximum(np.abs(b), 1.0)))
+    wire = [sum(d["payload_bytes"] for d in rnd) for rnd in detail]
+    log(f"[portfolio] 16 sites, {PORTFOLIO_SHARDS} shards over the fleet: "
+        f"{res16.outer_rounds} rounds (monolithic {mono16.outer_rounds}) "
+        f"in {wall:.2f} s, shard homes {homes}, largest gaps to the "
+        f"monolithic card solve {json.dumps(gaps)}, bytes on the wire by "
+        f"round {wire} (rounds >= 1 at most "
+        f"{max(wire[1:] or [0]) / max(wire[0], 1):.3f} of round 0)")
+    check(max(gaps.values()) <= SERVE_RTOL,
+          f"portfolio 16 fleet: gaps {gaps}")
+    by = {}
+    for name in FLEET_REPLICAS:
+        for rid, led in replica_ledgers(fleet.spool(name)).items():
+            if rid.startswith("pf16"):
+                for k, n in check_ledger_groups(
+                        led, pairs, f"portfolio 16 {name} {rid}").items():
+                    by[k] = by.get(k, 0) + n
+    check(by.get(fc.KERNEL_DENSE), f"portfolio 16 fleet: launches {by}")
+    log(f"[portfolio] 16 sites: launches on the replicas {by}")
+    add_launches(records, "portfolio", by)
+
 
 
 def main() -> int:
@@ -2109,6 +2865,15 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(records, pairs)
         log(f"[{what}] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet = fleet_phase(records, pairs)
+    log(f"[fleet] done in {time.perf_counter() - t0:.1f} s")
+    try:
+        t0 = time.perf_counter()
+        portfolio_phase(records, pairs, fleet)
+        log(f"[portfolio] done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        fleet.close()
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     card = card_line()
     print(card)

@@ -9,6 +9,8 @@ run_DERVET.py:73-92 and ``python -m dervet_tpu``'s solve path).
     python -m dervet_tpu_torch serve SPOOL_DIR [--once] [--device cuda:0]
     python -m dervet_tpu_torch status SPOOL_DIR [SPOOL_DIR...]
     python -m dervet_tpu_torch trace RID DIR [DIR...]
+    python -m dervet_tpu_torch portfolio REQUEST.json [--device cuda:0]
+    python -m dervet_tpu_torch fleet FLEET_DIR [--replicas N]
 
 ``design`` runs a one-shot BOOST sizing frontier
 (``design.cli.design_main``), ``montecarlo`` a one-shot Monte-Carlo
@@ -16,30 +18,39 @@ valuation (``stochastic.cli.montecarlo_main``); both take ``--backend
 {torch,cpu}`` and ``--device``.  ``serve`` starts the persistent scenario
 service over a file spool (``service.server.serve_main``; exit 0 after a
 drain), ``status`` and ``trace`` are the ops views of its published
-telemetry (``telemetry.ops``).  The JAX package's ``portfolio`` and
-``fleet`` subcommands belong to modules this package does not carry yet:
-they exit with status 2 and say so."""
+telemetry (``telemetry.ops``).  ``portfolio`` runs a one-shot coupled
+portfolio co-optimization (``portfolio.cli.portfolio_main``), ``fleet``
+N supervised serve replicas behind the fleet router, all on one device
+by default (``service.lifecycle.fleet_main``)."""
 from __future__ import annotations
 
 import argparse
 import sys
 
-# subcommands of ``python -m dervet_tpu`` whose modules are not ported
-UNPORTED_SUBCOMMANDS = ("portfolio", "fleet")
-EXIT_UNPORTED = 2
+# subcommands of ``python -m dervet_tpu`` whose modules are not ported:
+# none (``portfolio`` and ``fleet`` were the last)
+UNPORTED_SUBCOMMANDS = ()
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
-        print(f"dervet_tpu_torch: the {argv[0]!r} subcommand is not ported "
-              "yet; run it with python -m dervet_tpu", file=sys.stderr)
-        raise SystemExit(EXIT_UNPORTED)
     if argv and argv[0] == "serve":
         # persistent scenario service over a file spool: drops in
         # SPOOL/incoming/ become requests; SIGTERM drains and exits 0
         from .service.server import serve_main
         raise SystemExit(serve_main(argv[1:]))
+    if argv and argv[0] == "portfolio":
+        # one-shot coupled-portfolio co-optimization: dual-decomposed
+        # fleet solve against shared coupling constraints (exit 0 ok,
+        # 75 preempted, 2 infeasible/failed)
+        from .portfolio.cli import portfolio_main
+        raise SystemExit(portfolio_main(argv[1:]))
+    if argv and argv[0] == "fleet":
+        # supervised multi-replica fleet: spawn N serve replicas behind
+        # the router, respawn the dead ones (exit 0 on SIGTERM/SIGINT or
+        # --duration-s)
+        from .service.lifecycle import fleet_main
+        raise SystemExit(fleet_main(argv[1:]))
     if argv and argv[0] == "status":
         # live status from the serve loops' published telemetry
         from .telemetry.ops import status_main

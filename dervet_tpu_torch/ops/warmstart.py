@@ -34,7 +34,7 @@ UNSCALED ``(x, y)`` iterates per LP structure key.  Two lookup grades:
   from there.
 
 A third, caller-keyed grade serves the portfolio dual loop
-(``dervet_tpu/portfolio``): a **dual_iterate** hint.  A dual-price
+(``dervet_tpu_torch/portfolio``): a **dual_iterate** hint.  A dual-price
 update perturbs EVERY price entry of a member's ``c`` at once, so the
 float16 quantized digest moves in every price feature and the near
 grade degrades to the feature-nearest fallback (or cold) exactly on the
@@ -464,6 +464,16 @@ class SolutionMemory:
                 self._unlink(key, self._entries.pop(key))
             self.stats["invalidated"] += len(doomed)
         self.predictor.invalidate(skey)
+        # propagate the trust anomaly up to the request-level result
+        # cache (service/reqcache.py): any memoized whole-request
+        # answer could trace provenance to this memory — rejections
+        # are rare, so every live cache conservatively clears.  Fenced:
+        # cache invalidation must never break the certifier path.
+        try:
+            from ..service import reqcache
+            reqcache.notify_memory_invalidation(skey)
+        except Exception:
+            pass
         return len(doomed)
 
     # -- dual-iterate hint table (portfolio outer loop) -----------------

@@ -1897,8 +1897,10 @@ def resolve_group(items, backend: str, solver_opts, key=None,
         def _call():
             # hang/slow faults sleep INSIDE the guarded closure, exactly
             # where a wedged device call would be observed; device_loss
-            # raises from the same spot a real XlaRuntimeError would
-            faultinject.maybe_device_loss()
+            # raises from the same spot a real CUDA error would
+            faultinject.maybe_device_loss(
+                device if device is not None
+                else getattr(cache, "device", None))
             faultinject.maybe_sleep(labels, faultinject.RUNG_SOLVE)
             return solve_group(lps[0], lps, backend, solver_opts, key=key,
                                cache=cache, labels=labels, staged=staged,

@@ -8,6 +8,8 @@ backpressure rejections and a blocking solve wrapper.
 """
 from __future__ import annotations
 
+import inspect
+import pickle
 import random
 import time
 from concurrent.futures import Future
@@ -18,15 +20,22 @@ from .queue import QueueFullError
 
 
 class ScenarioClient:
-    """Thin client over a :class:`ScenarioService` (or anything that
-    exposes the same ``submit`` surface).
+    """Thin client over a :class:`ScenarioService` — or a
+    :class:`~dervet_tpu_torch.service.router.FleetRouter`, which exposes the
+    same ``submit`` surface.
 
     ``submit`` honors the backpressure contract end-to-end: a
     :class:`~dervet_tpu_torch.service.queue.QueueFullError` carries a
     ``retry_after_s`` hint (derived from the service's observed drain
     rate), and the client sleeps it out — CAPPED and JITTERED — and
     retries up to ``max_retries`` times before surfacing the rejection.
-    The jitter matters at scale: a burst of rejected clients all
+    Router redirects preserve the discipline: when every replica behind
+    a fleet router rejects, the router raises
+    :class:`~dervet_tpu_torch.utils.errors.FleetUnavailableError` — a
+    ``QueueFullError`` whose ``retry_after_s`` is the SMALLEST hint any
+    replica offered — so the per-replica drain-rate hint survives the
+    routing hop and the same capped ±25% backoff applies unchanged.
+    The jitter matters at fleet scale: a burst of rejected clients all
     honoring the same hint verbatim would re-arrive in one synchronized
     spike and re-overload the fleet they just backed off from."""
 
@@ -69,13 +78,35 @@ class ScenarioClient:
     def submit(self, cases, *, request_id=None, priority: int = 0,
                deadline_s: Optional[float] = None) -> Future:
         """Admit with bounded, jittered retry-after backoff on
-        queue-full.  (The JAX package's client also pre-serializes the
-        payload for its fleet router; this package has no router yet.)"""
+        queue-full.
+
+        Serialize ONCE: against a fleet router, the case payload is
+        pickled and content-digested here, before the retry loop, and
+        the same bytes/digest ride every attempt — a queue-full storm
+        used to re-pickle the full payload per attempt (and the router
+        needs the digest for its request-cache key anyway)."""
+        kwargs = {}
+        try:
+            params = inspect.signature(self.service.submit).parameters
+        except (TypeError, ValueError):
+            params = {}
+        if "cases_blob" in params and "content_digest" in params:
+            if not isinstance(cases, dict):
+                cases = dict(enumerate(cases))
+            try:
+                from . import reqcache
+                kwargs["cases_blob"] = pickle.dumps(
+                    cases, protocol=pickle.HIGHEST_PROTOCOL)
+                kwargs["content_digest"] = \
+                    reqcache.request_content_digest(cases)
+            except Exception:       # fall back to the plain path
+                kwargs = {}
         return self._submit_with_retry(
             "", lambda: self.service.submit(cases,
                                             request_id=request_id,
                                             priority=priority,
-                                            deadline_s=deadline_s))
+                                            deadline_s=deadline_s,
+                                            **kwargs))
 
     def solve(self, cases, *, timeout: Optional[float] = None,
               **kwargs):
@@ -126,4 +157,24 @@ class ScenarioClient:
         load-shed to a reduced screening-tier sample set and carries no
         certificates."""
         return self.submit_montecarlo(case, spec, **kwargs).result(
+            timeout=timeout)
+
+    def submit_portfolio(self, spec, *, request_id=None,
+                         priority: int = 0,
+                         deadline_s: Optional[float] = None) -> Future:
+        """Admit a PORTFOLIO request (coupled-fleet co-optimization)
+        with the same bounded, jittered retry-after backoff as
+        :meth:`submit`."""
+        return self._submit_with_retry(
+            "portfolio ", lambda: self.service.submit_portfolio(
+                spec, request_id=request_id, priority=priority,
+                deadline_s=deadline_s))
+
+    def portfolio(self, spec, *, timeout: Optional[float] = None,
+                  **kwargs):
+        """Submit a portfolio request and block for its
+        :class:`~dervet_tpu_torch.portfolio.solve.PortfolioResult`.  Check
+        ``result.fidelity`` — a ``"degraded"`` answer was load-shed to
+        the screening tier and carries no certificates."""
+        return self.submit_portfolio(spec, **kwargs).result(
             timeout=timeout)

@@ -38,7 +38,8 @@ from ..utils.errors import (BackendLostError,  # noqa: F401
                             BreakerOpenError, DeadlineExpiredError,
                             PoisonRequestError, QueueFullError,
                             RequestFailedError, RequestPreemptedError,
-                            ServiceClosedError, ServiceError, TypedError)
+                            ServiceClosedError, ServiceError,
+                            ShardCacheMissError, TypedError)
 
 
 class QueuedRequest:
@@ -50,16 +51,22 @@ class QueuedRequest:
     ``design_case``/``design_spec`` carry the base case + spec, the
     screening phase fills ``cases`` with the finalist candidate cases,
     and ``design_state`` carries the screening results to frontier
-    assembly at delivery), and ``"montecarlo"`` (a batched uncertainty
-    valuation — ``mc_case``/``mc_spec`` carry the base case + sampler
-    spec; the MC round answers it directly — see
-    ``dervet_tpu_torch.stochastic``).  The JAX package's portfolio kinds
-    are refused at admission: ``portfolio/`` is not ported."""
+    assembly at delivery), and ``"portfolio"`` (coupled-fleet
+    co-optimization — ``portfolio_spec`` carries the member cases +
+    coupling constraints; the dual loop runs in its own round).  A
+    ``"portfolio_shard"`` request is one shard of ANOTHER node's dual
+    round (``shard_payload``: site cases + the round's dual-price
+    vector), dispatched against this replica's persistent caches — see
+    ``dervet_tpu_torch.portfolio.shard``.  A ``"montecarlo"`` request is a
+    batched uncertainty valuation (``mc_case``/``mc_spec`` carry the
+    base case + sampler spec; the MC round answers it directly — see
+    ``dervet_tpu_torch.stochastic``)."""
 
     __slots__ = ("request_id", "cases", "priority", "deadline", "future",
                  "seq", "t_submit", "fingerprint", "kind", "design_case",
-                 "design_spec", "design_state", "mc_case", "mc_spec",
-                 "span", "trace_ctx")
+                 "design_spec", "design_state", "portfolio_spec",
+                 "shard_payload", "mc_case", "mc_spec", "span",
+                 "trace_ctx")
 
     def __init__(self, request_id: str, cases: Dict, priority: int = 0,
                  deadline_s: Optional[float] = None, seq: int = 0,
@@ -79,6 +86,8 @@ class QueuedRequest:
         self.design_case = None
         self.design_spec = None
         self.design_state = None
+        self.portfolio_spec = None
+        self.shard_payload = None
         self.mc_case = None
         self.mc_spec = None
         # telemetry (dervet_tpu_torch/telemetry): the request's root span

@@ -35,9 +35,8 @@ requests (request id = file stem), results land in
 
 This package drives ONE device (``device=None`` -> ``cuda:0``, raising
 at construction when no GPU is visible; ``device="cpu"`` only by name).
-The JAX package's portfolio request types are refused at admission with
-a typed :class:`~dervet_tpu_torch.utils.errors.ParameterError`:
-``portfolio/`` is not ported.
+Several serve-loop replicas may share one card behind the fleet router
+(``service.router``), each process with a CUDA context of its own.
 """
 from __future__ import annotations
 
@@ -56,8 +55,9 @@ from ..telemetry import ops as telemetry_ops
 from ..telemetry import registry as telemetry_registry
 from ..telemetry import trace as telemetry_trace
 from ..utils.breaker import BreakerBoard
-from ..utils.errors import (BreakerOpenError, ParameterError,
-                            PoisonRequestError, PreemptedError, TellUser)
+from ..utils.errors import (BackendLostError, BreakerOpenError,
+                            PoisonRequestError, PreemptedError,
+                            ShardCacheMissError, TellUser)
 from ..utils.supervisor import RunSupervisor
 from . import resilience
 from .batcher import BatchRound
@@ -69,27 +69,11 @@ from .queue import (AdmissionQueue, QueuedRequest, QueueFullError,
 # directories or collide after sanitization
 _REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
 
-# the replica surface of a serve loop's spool (heartbeat, router probe
-# echo, hedge-cancel markers, warm-start memory handoff) — the names the
-# JAX package's fleet router reads
-HEARTBEAT_FILE = "heartbeat.json"
-PROBE_FILE = "probe.json"
-CANCEL_DIR = "cancel"
-MEMORY_EXPORT_FILE = "memory_export.pkl"
-MEMORY_IN_DIR = "memory_in"
-
-
-def _portfolio_not_ported(what: str) -> ParameterError:
-    return ParameterError(
-        f"{what}: portfolio requests are not served by dervet_tpu_torch "
-        "— its portfolio/ package is not ported yet (serve them with "
-        "python -m dervet_tpu serve)")
-
-
-def is_portfolio_payload(payload) -> bool:
-    """A spool ``.json`` with a top-level ``"portfolio"`` object is a
-    portfolio request (refused at admission here)."""
-    return isinstance(payload, dict) and "portfolio" in payload
+# the serve loop's exit status after its backend was lost for good (a
+# sticky CUDA fault outlived the re-init budget): EX_UNAVAILABLE.  The
+# round's requests stay "admitted" in the journal, so the fleet router
+# re-routes them to a live replica and the supervisor respawns this one.
+EXIT_BACKEND_LOST = 69
 
 
 class ScenarioService:
@@ -195,6 +179,19 @@ class ScenarioService:
         # the last design screening's per-round stats (the zero-compile
         # warm observable the design smoke gates on)
         self.last_screen_stats: Optional[Dict] = None
+        # portfolio-request counters (dervet_tpu_torch/portfolio): coupled
+        # fleets solved through the dual-decomposed outer loop
+        self._portfolio = {"requests": 0, "outer_rounds": 0,
+                           "windows": 0, "dual_iterate_seeds": 0,
+                           "degraded_answers": 0, "infeasible": 0,
+                           "failed": 0, "portfolio_s": 0.0,
+                           # fleet-sharded rounds served FOR other
+                           # nodes' dual loops (portfolio/shard.py)
+                           "shard_requests": 0, "shard_windows": 0,
+                           "shard_failed": 0, "shard_s": 0.0}
+        # the last portfolio solve's observability section (gap, rounds,
+        # certificate) — the smoke/bench gates' surface
+        self.last_portfolio: Optional[Dict] = None
         # monte-carlo request counters (dervet_tpu_torch/stochastic): batched
         # uncertainty valuations — the sample mass screens through the
         # design_caches tiers, the quantile-pinning samples certify
@@ -226,6 +223,18 @@ class ScenarioService:
         # manifests key on it), so it is rejected at admission; the id
         # frees the moment its future resolves
         self._active_ids: set = set()
+        # replica-side portfolio shard case cache: the full site
+        # payload arrives ONCE per (seed_tag, plan_fp); every
+        # later dual round ships just the price vector + the plan
+        # fingerprint and resolves the cases here at admission.  A
+        # reference that misses (failover moved the shard, eviction,
+        # restart) raises the typed ShardCacheMissError, and the shard
+        # executor re-sends the full payload once.  Bounded LRU — a
+        # replica serving many portfolios must not pin every site set.
+        self._shard_cases: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._shard_cases_cap = 32
+        self._shard_cases_lock = threading.Lock()
         self._metrics_lock = threading.Lock()
         # bounded: the percentile surface only needs a recent window,
         # and a service that never dies must not grow per-request state
@@ -330,23 +339,91 @@ class ScenarioService:
                          priority: int = 0,
                          deadline_s: Optional[float] = None,
                          trace_ctx: Optional[Dict] = None) -> Future:
-        """The JAX package's PORTFOLIO request type (coupled-fleet
-        co-optimization): refused at admission with a typed
-        :class:`ParameterError` — ``portfolio/`` is not ported."""
-        raise _portfolio_not_ported(f"request {request_id!r}")
+        """Admit one PORTFOLIO request (coupled-fleet co-optimization):
+        solve ``spec``'s member sites as one LP under the shared
+        coupling constraints via the dual-decomposed outer loop
+        (``dervet_tpu_torch.portfolio``), deliver a
+        :class:`~dervet_tpu_torch.portfolio.solve.PortfolioResult` through
+        the returned future.  Admission semantics (priority, deadline,
+        backpressure, poison blocklist, draining) are identical to
+        :meth:`submit`.  The dual loop dispatches through the
+        service's persistent solver cache, so repeat portfolios reuse
+        its solvers AND the warm-start memory."""
+        from ..portfolio.service import portfolio_fingerprint
+        if self._draining.is_set():
+            raise ServiceClosedError(
+                "service is draining — no new admissions")
+        spec.validate()       # spec errors raise HERE, at admission
+        fingerprint = portfolio_fingerprint(spec)
+        return self._admit(request_id, fingerprint, priority, deadline_s,
+                           kind="portfolio", portfolio_spec=spec,
+                           trace_ctx=trace_ctx)
 
     def submit_portfolio_shard(self, shard: Dict, *, request_id=None,
                                priority: int = 0,
                                deadline_s: Optional[float] = None,
                                trace_ctx: Optional[Dict] = None) -> Future:
-        """The JAX package's PORTFOLIO SHARD request type (one slice of
-        another node's dual round): refused at admission like
-        :meth:`submit_portfolio`."""
-        raise _portfolio_not_ported(f"shard request {request_id!r}")
+        """Admit one PORTFOLIO SHARD request: a slice of another node's
+        dual round (site cases + the round's dual-price vector — see
+        ``dervet_tpu_torch.portfolio.shard``), solved against THIS replica's
+        persistent solver cache and answered as a
+        :class:`~dervet_tpu_torch.portfolio.shard.PortfolioShardResult`.  The
+        router keeps shard→replica assignment sticky, so round k+1's
+        shard finds the ``dual_iterate`` hints round k stored here."""
+        import hashlib
+        if self._draining.is_set():
+            raise ServiceClosedError(
+                "service is draining — no new admissions")
+        if not isinstance(shard, dict):
+            raise ValueError("a portfolio shard needs a payload dict")
+        shard = self._resolve_shard_cases(shard)
+        h = hashlib.sha256()
+        h.update(str(shard.get("seed_tag")).encode())
+        h.update(repr(sorted(str(k) for k in shard["sites"])).encode())
+        return self._admit(request_id, h.hexdigest(), priority,
+                           deadline_s, kind="portfolio_shard",
+                           shard_payload=shard, trace_ctx=trace_ctx)
+
+    def _resolve_shard_cases(self, shard: Dict) -> Dict:
+        """Shard case cache admission hook: a FULL payload ("sites"
+        present) seeds the ``(seed_tag, plan_fp)`` entry; a REFERENCE
+        payload (no "sites", a "plan_fp") resolves against it or raises
+        the typed :class:`ShardCacheMissError` so the executor re-sends
+        the full payload once.  The returned shard always carries
+        resolved sites."""
+        sites = shard.get("sites")
+        seed_tag = str(shard.get("seed_tag"))
+        plan_fp = shard.get("plan_fp")
+        if sites:
+            if plan_fp:
+                key = (seed_tag, str(plan_fp))
+                with self._shard_cases_lock:
+                    self._shard_cases[key] = sites
+                    self._shard_cases.move_to_end(key)
+                    while len(self._shard_cases) > self._shard_cases_cap:
+                        self._shard_cases.popitem(last=False)
+            return shard
+        if not plan_fp:
+            raise ValueError("a portfolio shard needs a non-empty "
+                             "'sites' dict (or a 'plan_fp' reference "
+                             "to a previously shipped one)")
+        key = (seed_tag, str(plan_fp))
+        with self._shard_cases_lock:
+            cached = self._shard_cases.get(key)
+            if cached is not None:
+                self._shard_cases.move_to_end(key)
+        if cached is None:
+            raise ShardCacheMissError(
+                f"shard {seed_tag!r} arrived in reference mode but this "
+                f"replica holds no cached site payload for plan "
+                f"{str(plan_fp)[:12]!r} — re-dispatch with the full "
+                "'sites' payload to re-seed the cache")
+        return {**shard, "sites": cached}
 
     def _admit(self, request_id, fingerprint, priority, deadline_s, *,
                cases=None, kind: str = "scenario", design_case=None,
-               design_spec=None, mc_case=None, mc_spec=None,
+               design_spec=None, portfolio_spec=None, shard_payload=None,
+               mc_case=None, mc_spec=None,
                trace_ctx: Optional[Dict] = None) -> Future:
         """Shared admission tail: backend breaker, poison blocklist,
         id allocation/validation, queue put with typed rejection."""
@@ -389,6 +466,8 @@ class ScenarioService:
         req.fingerprint = fingerprint
         req.design_case = design_case
         req.design_spec = design_spec
+        req.portfolio_spec = portfolio_spec
+        req.shard_payload = shard_payload
         req.mc_case = mc_case
         req.mc_spec = mc_spec
         # telemetry: the request's root span on this process — a child
@@ -448,12 +527,12 @@ class ScenarioService:
     def submit_pickle(self, path, **kwargs) -> Future:
         """Admit a fleet-transport request payload: a pickle of
         ``{"cases": {...}, "priority": int, "deadline_epoch": float}``
-        (the shape the JAX package's ``SpoolReplica.encode_payload``
-        writes).  A same-trust-domain transport — the payload is written
-        by a router process on our own host/cluster, never by an
-        external client.  The deadline rides as an absolute epoch so
-        time spent in transit between router and replica counts
-        against it."""
+        (see :meth:`~dervet_tpu_torch.service.fleet.SpoolReplica.
+        encode_payload`).  A same-trust-domain transport — the payload
+        was written by our own router process on our own host/cluster,
+        never by an external client.  The deadline rides as an absolute
+        epoch so time spent in transit between router and replica
+        counts against it."""
         import pickle
         with open(path, "rb") as f:
             payload = pickle.load(f)
@@ -466,7 +545,8 @@ class ScenarioService:
         # span tree parents under the router's transport span
         kwargs.setdefault("trace_ctx", payload.get("trace"))
         if payload.get("portfolio_shard") is not None:
-            # fleet-sharded portfolio round: refused (not ported)
+            # fleet-sharded portfolio round: one shard of another
+            # node's dual loop (dervet_tpu_torch/portfolio/shard.py)
             return self.submit_portfolio_shard(
                 payload["portfolio_shard"], **kwargs)
         cases = payload.get("cases")
@@ -502,12 +582,15 @@ class ScenarioService:
 
     def submit_portfolio_file(self, path, base_path=None,
                               **kwargs) -> Future:
-        """A spool ``portfolio.json`` request file: refused at admission
-        (typed :class:`ParameterError`; ``portfolio/`` is not ported),
-        so the serve loop parks it in ``failed/`` with its
-        ``.error.json``."""
-        raise _portfolio_not_ported(
-            f"request {kwargs.get('request_id')!r} ({Path(path).name})")
+        """Admit a spool ``portfolio.json`` request file (see
+        ``portfolio.service.parse_portfolio_request`` for the shape);
+        parse errors raise here, at admission."""
+        import json
+        from ..portfolio.service import parse_portfolio_request
+        with open(path) as f:
+            payload = json.load(f)
+        spec = parse_portfolio_request(payload, base_path=base_path)
+        return self.submit_portfolio(spec, **kwargs)
 
     # -- batching loop --------------------------------------------------
     def start(self) -> "ScenarioService":
@@ -597,7 +680,78 @@ class ScenarioService:
                    if r.kind == "montecarlo"]
         certified = [r for r in certified if r.kind != "montecarlo"]
         degraded = [r for r in degraded if r.kind != "montecarlo"]
+        # portfolio requests run their own dual-loop round against the
+        # service's persistent caches; a load-SHED portfolio runs the
+        # degraded tier (screening inner solves, certification off,
+        # answer marked — never certificate-stamped)
+        portfolio_shed_ids = {r.request_id for r in degraded
+                              if r.kind == "portfolio"}
+        portfolio_reqs = [r for r in certified + degraded
+                          if r.kind == "portfolio"]
+        certified = [r for r in certified if r.kind != "portfolio"]
+        degraded = [r for r in degraded if r.kind != "portfolio"]
+        # portfolio SHARD requests (one slice of another node's dual
+        # round): latency-critical sub-steps of a loop already in
+        # flight elsewhere — served first, never shed (the owning
+        # loop's degraded decision was made at ITS admission)
+        shard_reqs = [r for r in certified + degraded
+                      if r.kind == "portfolio_shard"]
+        certified = [r for r in certified if r.kind != "portfolio_shard"]
+        degraded = [r for r in degraded if r.kind != "portfolio_shard"]
         served = 0
+        if shard_reqs:
+            from ..portfolio.shard import PortfolioShardRound
+            sr = PortfolioShardRound(shard_reqs, backend=self.backend,
+                                     solver_opts=self.solver_opts,
+                                     solver_cache=self.solver_cache,
+                                     supervisor=self.supervisor,
+                                     board=self.breakers,
+                                     device=self.device)
+            try:
+                sr.run()
+            except BaseException as e:
+                for req in portfolio_reqs + design_reqs + mc_reqs \
+                        + degraded + certified:
+                    if not req.future.done():
+                        req.future.set_exception(ServiceClosedError(
+                            f"request {req.request_id!r} not "
+                            "dispatched: the portfolio shard round "
+                            f"failed ({e}) — resubmit"))
+                        with self._metrics_lock:
+                            self._requests["failed"] += 1
+                self._absorb_shard_stats(sr)
+                raise
+            self._absorb_shard_stats(sr)
+            served += len(sr.answered)
+        if portfolio_reqs:
+            from ..portfolio.service import PortfolioRound
+            pr = PortfolioRound(portfolio_reqs, backend=self.backend,
+                                solver_opts=self.solver_opts,
+                                solver_cache=self.solver_cache,
+                                degraded_cache=self.degraded_cache,
+                                degraded_ids=portfolio_shed_ids,
+                                supervisor=self.supervisor,
+                                board=self.breakers,
+                                device=self.device)
+            try:
+                pr.run()
+            except BaseException as e:
+                # the portfolio round answers its own requests (incl.
+                # preemption); every OTHER request this cycle already
+                # popped from the queue must be answered here or its
+                # client hangs forever
+                for req in design_reqs + mc_reqs + degraded + certified:
+                    if not req.future.done():
+                        req.future.set_exception(ServiceClosedError(
+                            f"request {req.request_id!r} not "
+                            "dispatched: the portfolio round failed "
+                            f"({e}) — resubmit"))
+                        with self._metrics_lock:
+                            self._requests["failed"] += 1
+                self._absorb_portfolio_stats(pr)
+                raise
+            self._absorb_portfolio_stats(pr)
+            served += len(pr.answered)
         if design_reqs:
             from ..design.service import DesignRound
             dr = DesignRound(design_reqs, backend=self.backend,
@@ -767,6 +921,50 @@ class ScenarioService:
         if mr.last_mc is not None:
             self.last_mc_stats = mr.last_mc
 
+    def _absorb_shard_stats(self, sr) -> None:
+        """Portfolio-shard-round bookkeeping + request accounting (the
+        round answers every future itself)."""
+        st = sr.stats
+        with self._metrics_lock:
+            for k in ("shard_requests", "shard_windows", "shard_failed"):
+                self._portfolio[k] += int(st.get(k, 0))
+            self._portfolio["shard_s"] += float(st.get("shard_s", 0.0))
+            for req in sr.answered:
+                fut = req.future
+                if fut.done() and fut.exception() is None:
+                    self._requests["completed"] += 1
+                    self._latencies.append(
+                        time.monotonic() - req.t_submit)
+                    self._note_request_telemetry(req, True)
+                elif fut.done():
+                    self._requests["failed"] += 1
+                    self._note_request_telemetry(req, False)
+
+    def _absorb_portfolio_stats(self, pr) -> None:
+        """Portfolio-round bookkeeping + request accounting (the round
+        answers every future itself)."""
+        st = pr.stats
+        with self._metrics_lock:
+            for k in ("requests", "outer_rounds", "windows",
+                      "dual_iterate_seeds", "infeasible", "failed"):
+                self._portfolio[k] += int(st.get(k, 0))
+            self._portfolio["degraded_answers"] += int(
+                st.get("degraded", 0))
+            self._portfolio["portfolio_s"] += float(
+                st.get("portfolio_s", 0.0))
+            for req in pr.answered:
+                fut = req.future
+                if fut.done() and fut.exception() is None:
+                    self._requests["completed"] += 1
+                    self._latencies.append(
+                        time.monotonic() - req.t_submit)
+                    self._note_request_telemetry(req, True)
+                elif fut.done():
+                    self._requests["failed"] += 1
+                    self._note_request_telemetry(req, False)
+        if pr.last_portfolio is not None:
+            self.last_portfolio = pr.last_portfolio
+
     def _absorb_round_stats(self, rnd: BatchRound) -> None:
         """Round-level bookkeeping, fired by the batcher BEFORE any
         request future resolves — so metrics()/last_round_ledger are
@@ -934,6 +1132,15 @@ class ScenarioService:
             return {"completed": self._requests["completed"],
                     "failed": self._requests["failed"]}
 
+    def _peak_memory(self) -> Optional[int]:
+        """The caching allocator's peak on this service's CUDA device
+        since the process started (None off the card)."""
+        dev = self.device
+        if dev is None or getattr(dev, "type", None) != "cuda":
+            return None
+        import torch
+        return int(torch.cuda.max_memory_allocated(dev))
+
     def metrics(self) -> Dict:
         """Service-level metrics: queue depth/rejects, request counts,
         latency percentiles, batch occupancy, compile-cache hits."""
@@ -942,6 +1149,7 @@ class ScenarioService:
             rounds = dict(self._rounds)
             requests = dict(self._requests)
             design = dict(self._design)
+            portfolio = dict(self._portfolio)
             montecarlo = dict(self._montecarlo)
         design["screen_s"] = round(design["screen_s"], 3)
         design["screen_candidates_per_s"] = round(
@@ -966,6 +1174,14 @@ class ScenarioService:
             # design-service load, separate from scenario rounds so the
             # two request types are distinguishable under pressure
             "design": design,
+            # portfolio co-optimization load (dervet_tpu_torch/portfolio):
+            # request/round counters plus the last dual loop's full
+            # observability section (gap, per-round seeding, cert)
+            "portfolio": {**{k: (round(v, 3)
+                                 if k in ("portfolio_s", "shard_s")
+                                 else v)
+                             for k, v in portfolio.items()},
+                          "last": self.last_portfolio},
             # monte-carlo uncertainty valuations (dervet_tpu_torch/stochastic):
             # sample volume, tier mix, and the last run's per-round
             # dispatch stats (the zero-compile warm observable)
@@ -1005,7 +1221,8 @@ class ScenarioService:
             "service": {"backend": self.backend,
                         "started": self._started,
                         "draining": self._draining.is_set(),
-                        "device": self.device_info},
+                        "device": self.device_info,
+                        "peak_memory_bytes": self._peak_memory()},
             # self-healing layer: breaker states, shed/degraded counts,
             # backend-loss recovery counters, poison quarantine
             "resilience": {
@@ -1026,10 +1243,16 @@ def serve_main(argv=None) -> int:
     """CLI loop: watch ``SPOOL/incoming/`` for model-parameter files,
     serve each as a request, write results to ``SPOOL/results/<rid>/``.
     SIGTERM/SIGINT drains gracefully and exits 0 (resumable per-request
-    manifests under ``--checkpoint-dir``); a second signal aborts."""
+    manifests under ``--checkpoint-dir``); a second signal aborts.  A
+    request lost with the backend (a sticky device fault past the re-init
+    budget) stops the loop: no drain, no terminal marker for the
+    unanswered requests, exit :data:`EXIT_BACKEND_LOST` — a replica's
+    death for the fleet router to fail over and the supervisor to
+    respawn."""
     import argparse
     import json
     import os
+    import sys
 
     from ..utils.supervisor import atomic_write
 
@@ -1065,9 +1288,8 @@ def serve_main(argv=None) -> int:
     parser.add_argument("--once", action="store_true",
                         help="serve the files already in incoming/, "
                              "then drain and exit (smoke/CI mode)")
-    # fleet-replica surface (the JAX package's fleet router reads it):
-    # heartbeats, probe echo, hedge-cancel markers, warm-start memory
-    # handoff
+    # fleet-replica surface (service/fleet.py + router.py): heartbeats,
+    # probe echo, hedge-cancel markers, warm-start memory handoff
     parser.add_argument("--heartbeat-s", type=float, default=0.5,
                         help="rewrite heartbeat.json at this cadence "
                              "(the fleet router's liveness signal; "
@@ -1095,14 +1317,15 @@ def serve_main(argv=None) -> int:
     if args.backend != "cpu":
         from ..device import resolve_device
         resolve_device(args.device)
+    from . import fleet as fleet_mod
 
     spool = Path(args.spool_dir)
     incoming = spool / "incoming"
     results_root = spool / "results"
     done_dir = spool / "done"
     failed_dir = spool / "failed"
-    cancel_dir = spool / CANCEL_DIR
-    memory_in = spool / MEMORY_IN_DIR
+    cancel_dir = spool / fleet_mod.CANCEL_DIR
+    memory_in = spool / fleet_mod.MEMORY_IN_DIR
     for d in (incoming, results_root, done_dir, failed_dir, cancel_dir,
               memory_in):
         d.mkdir(parents=True, exist_ok=True)
@@ -1128,6 +1351,10 @@ def serve_main(argv=None) -> int:
         TellUser.info(f"serve: telemetry exposition on "
                       f"http://127.0.0.1:{port}/metrics")
     pending: Dict[str, Future] = {}
+    # set (on the batcher thread) when a request fails because the
+    # backend is gone for good: the loop then stops admitting, leaves
+    # every unanswered request "admitted" and exits EXIT_BACKEND_LOST
+    backend_lost = threading.Event()
 
     # -- fleet-replica machinery (no-ops for a solo serve loop) ---------
     import pickle
@@ -1146,7 +1373,7 @@ def serve_main(argv=None) -> int:
         nonce = probe_trace = None
         try:
             probe_doc = json.loads(
-                (spool / PROBE_FILE).read_text())
+                (spool / fleet_mod.PROBE_FILE).read_text())
             nonce = probe_doc.get("nonce")
             # echo the router's probe telemetry context verbatim: the
             # probe span's round-trip closes on the router side when
@@ -1155,7 +1382,7 @@ def serve_main(argv=None) -> int:
         except (OSError, ValueError):
             pass
         mem = service.solver_cache.memory
-        atomic_write(spool / HEARTBEAT_FILE, json.dumps({
+        atomic_write(spool / fleet_mod.HEARTBEAT_FILE, json.dumps({
             "t": round(time.time(), 3),
             "pid": os.getpid(),
             "name": args.replica_name,
@@ -1226,7 +1453,7 @@ def serve_main(argv=None) -> int:
             stores = mem.snapshot()["stores"]
             if stores != hb_state["mem_stores"]:
                 hb_state["mem_stores"] = stores
-                atomic_write(spool / MEMORY_EXPORT_FILE,
+                atomic_write(spool / fleet_mod.MEMORY_EXPORT_FILE,
                              pickle.dumps(
                                  mem.export_payload(),
                                  protocol=pickle.HIGHEST_PROTOCOL))
@@ -1274,6 +1501,16 @@ def serve_main(argv=None) -> int:
         idempotently or replays only the file move (see journal.py)."""
         try:
             err = fut.exception()
+            if err is not None and (isinstance(err, BackendLostError)
+                                    or resilience.is_backend_loss(err)):
+                # no terminal marker and no journal record: the request
+                # stays admitted and its input stays in incoming/, for
+                # the fleet router's exactly-once failover to re-route
+                backend_lost.set()
+                service.request_stop()
+                TellUser.error(f"serve: request {rid} lost with the "
+                               f"backend ({err}) — exiting")
+                return
             if err is None:
                 res = fut.result()
                 res.save_as_csv(results_root / rid)
@@ -1318,6 +1555,8 @@ def serve_main(argv=None) -> int:
             submitted_any = False
             deferred = False
             for path in sorted(incoming.glob("*")):
+                if backend_lost.is_set():
+                    break
                 if path.suffix.lower() not in (".csv", ".json", ".xml",
                                                ".pkl"):
                     continue
@@ -1365,6 +1604,8 @@ def serve_main(argv=None) -> int:
                     is_design = is_portfolio = is_mc = False
                     if path.suffix.lower() == ".json":
                         from ..design.service import is_design_payload
+                        from ..portfolio.service import \
+                            is_portfolio_payload
                         from ..stochastic.service import \
                             is_montecarlo_payload
                         try:
@@ -1400,6 +1641,8 @@ def serve_main(argv=None) -> int:
                 except ServiceClosedError:
                     break
                 except Exception as e:  # unparseable input: park it
+                    if backend_lost.is_set():
+                        break           # refused by the open breaker
                     atomic_write(failed_dir / f"{path.name}.error.txt",
                                  f"{type(e).__name__}: {e}\n")
                     # the machine-readable form too: typed admission
@@ -1437,6 +1680,17 @@ def serve_main(argv=None) -> int:
             if not submitted_any:
                 service.supervisor.wait_stop(
                     min(args.poll_s, args.heartbeat_s or args.poll_s))
+        if backend_lost.is_set():
+            # no drain (every round would fail on the dead context) and
+            # no interpreter teardown: after a device-side assert, atexit
+            # handlers that touch CUDA raise again
+            journal.close()
+            TellUser.error("serve: backend lost — unanswered requests "
+                           "stay admitted for the fleet router; exit "
+                           f"{EXIT_BACKEND_LOST}")
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(EXIT_BACKEND_LOST)
         service.drain()
         if args.heartbeat_s:
             write_heartbeat()   # final beat advertises draining=True

@@ -81,7 +81,20 @@ Two activation paths:
                                          DERVET_TPU_FAULT_DEVICE_LOSS_N=3
                                          fires 3 consecutive losses
                                          (default 1) — drills N-failed-
-                                         re-inits -> a lost round
+                                         re-inits -> a lost round.
+                                         DERVET_TPU_FAULT_DEVICE_LOSS=sticky
+                                         on a CUDA device provokes a
+                                         REAL device-side assert (an
+                                         out-of-range gather, then a
+                                         synchronize) where the typed
+                                         error is raised: the process's
+                                         CUDA context stays unusable, so
+                                         every re-init fails.  Arm it in
+                                         a child process's environment
+                                         only (a fleet replica) — never
+                                         in a process whose context must
+                                         survive.  On the CPU it raises
+                                         the typed error.
       DERVET_TPU_FAULT_STALE_SEED=1      deterministically corrupt window
                                          1's WARM-START seed (x and y)
                                          before the seeded solve (scale
@@ -219,6 +232,7 @@ class FaultPlan:
                  device_loss: bool = False,
                  device_loss_after: int = 0,
                  device_loss_n: int = 1,
+                 device_loss_sticky: bool = False,
                  crash_cases: Iterable = (),
                  stale_seed: Iterable = (),
                  stale_seed_scale: float = 0.5,
@@ -260,6 +274,9 @@ class FaultPlan:
         self.device_loss = bool(device_loss)
         self.device_loss_after = int(device_loss_after)
         self.device_loss_n = int(device_loss_n)
+        # sticky: the loss is a genuine device-side assert on a CUDA
+        # device (see maybe_device_loss), not only the typed error
+        self.device_loss_sticky = bool(device_loss_sticky)
         self._solve_calls = 0
         self._device_loss_fired = 0
         # crash_cases (the `poison_case` kind): dispatching a targeted
@@ -534,6 +551,7 @@ def _plan_from_env() -> Optional[FaultPlan]:
             os.environ.get("DERVET_TPU_FAULT_DEVICE_LOSS_AFTER", 0)),
         device_loss_n=int(
             os.environ.get("DERVET_TPU_FAULT_DEVICE_LOSS_N", 1)),
+        device_loss_sticky=(dl == "sticky"),
         crash_cases=crash or (),
         stale_seed=ss or (),
         stale_seed_scale=float(
@@ -656,17 +674,37 @@ def maybe_overload() -> bool:
     return plan is not None and plan.overload_due()
 
 
-def maybe_device_loss() -> None:
+def maybe_device_loss(device=None) -> None:
     """``device_loss`` injection point, called at the top of each solve
     call: when due, raise the injected backend-death error — exactly
     where a real CUDA runtime error would surface — so the service's
     teardown / warmup re-init / checkpoint replay / lost-round chain
-    is exercised end to end."""
+    is exercised end to end.  A ``sticky`` plan on a CUDA ``device``
+    first provokes a real device-side assert (:func:`provoke_device_assert`),
+    whose CUDA error is what raises."""
     from .errors import DeviceLossError
     plan = get_plan()
     if plan is not None and plan.device_loss_due():
+        if plan.device_loss_sticky and device is not None:
+            provoke_device_assert(device)
         raise DeviceLossError(
             "fault injection: device loss — backend died mid-solve")
+
+
+def provoke_device_assert(device) -> None:
+    """A genuine sticky CUDA fault on ``device``: a gather at an index
+    far out of range trips the indexing kernel's device-side assert, and
+    the synchronize raises it ("device-side assert triggered").  The
+    process's CUDA context is unusable from then on.  A no-op for a
+    non-CUDA device."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    x = torch.zeros(8, device=dev)
+    bad = torch.full((1,), 1 << 30, dtype=torch.long, device=dev)
+    x[bad]
+    torch.cuda.synchronize(dev)
 
 
 def maybe_straggle(device_index: int) -> float:

@@ -5,10 +5,12 @@ and load-shed files (Battery + PV + ICE; DA, retail energy and demand
 charges, Reliability; two months) goes through both CLIs' ``main`` on
 exact HiGHS: every output CSV is byte-identical, and so are the
 ``design`` and ``montecarlo`` subcommands' deterministic artifacts.  The
-port's CLI exits 75 when a run is preempted, and non-zero, naming the
-subcommand, for the JAX package's subcommands it does not carry yet
-(``portfolio``, ``fleet``); ``serve --once`` on the CPU device serves a
-spool and exits 0, and ``status`` and ``trace`` read what it published.
+port's CLI exits 75 when a run is preempted; every subcommand of the JAX
+package is ported (each exits from its own parser's usage error without
+arguments), ``portfolio`` prints the same summary and writes the same
+CSVs as the JAX package's on exact HiGHS; ``serve --once`` on the CPU
+device serves a spool and exits 0, and ``status`` and ``trace`` read
+what it published.
 """
 import filecmp
 import subprocess
@@ -119,24 +121,57 @@ JAX_SUBCOMMANDS = ("serve", "portfolio", "fleet", "status", "trace")
 
 @pytest.mark.parametrize("sub", JAX_SUBCOMMANDS)
 def test_unported_subcommands_exit_nonzero(sub, capsys):
-    """Called without arguments, each exits non-zero: the subcommands
-    the port does not carry yet (portfolio, fleet) with status 2 naming
-    themselves, the ported ones (serve, status, trace) from their own
-    parser's usage error."""
+    """Called without arguments, each of the JAX package's subcommands
+    exits non-zero from its own parser's usage error: every one is
+    ported now (``portfolio`` and ``fleet`` were the last)."""
     with pytest.raises(SystemExit) as exc:
         cli.main([sub])
-    assert exc.value.code != 0
+    assert exc.value.code == 2
     err = capsys.readouterr().err
-    if sub in cli.UNPORTED_SUBCOMMANDS:
-        assert exc.value.code == cli.EXIT_UNPORTED
-        assert f"{sub!r} subcommand is not ported" in err
-    else:
-        assert "not ported" not in err
-        assert f"usage: dervet_tpu_torch {sub}" in err
+    assert "not ported" not in err
+    assert f"usage: dervet_tpu_torch {sub}" in err
 
 
-def test_unported_subcommands_are_the_fleet_and_portfolio():
-    assert set(cli.UNPORTED_SUBCOMMANDS) == {"portfolio", "fleet"}
+def test_unported_subcommands_are_the_fleet_and_portfolio(tmp_path, capsys):
+    """No subcommand is left unported, and ``portfolio`` on a 2-site
+    request with ``--backend cpu --device cpu`` prints the same summary
+    JSON and writes byte-identical CSVs as ``python -m dervet_tpu
+    portfolio --backend cpu``."""
+    import json
+
+    from dervet_tpu_torch.portfolio import PortfolioSpec, solve_portfolio
+    from dervet_tpu_torch.portfolio.service import \
+        synthetic_portfolio_members
+    assert cli.UNPORTED_SUBCOMMANDS == ()
+    shape = {"sites": 2, "hours": 48, "window": 24}
+    probe = solve_portfolio(PortfolioSpec(
+        members=synthetic_portfolio_members(2, hours=48, window=24),
+        export_cap_kw=1e9, max_outer=1), backend="cpu")
+    cap = float(probe.aggregate["net_export"].max()) - 800.0
+    req = tmp_path / "folio.json"
+    req.write_text(json.dumps({"portfolio": {
+        "synthetic_members": shape, "export_cap_kw": cap,
+        "max_outer": 20, "gap_tol": 1e-4}}))
+    out_t, out_j = tmp_path / "torch", tmp_path / "jax"
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["portfolio", str(req), "--backend", "cpu", "--device",
+                  "cpu", "--out", str(out_t)])
+    assert exc.value.code == 0
+    summary_t = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with pytest.raises(SystemExit) as exc:
+        jax_cli.main(["portfolio", str(req), "--backend", "cpu", "--out",
+                      str(out_j)])
+    assert exc.value.code == 0
+    summary_j = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary_t.pop("out") == str(out_t)
+    assert summary_j.pop("out") == str(out_j)
+    assert summary_t == summary_j and summary_t["converged"]
+    csvs = sorted(p.name for p in out_j.glob("*.csv"))
+    assert csvs and csvs == sorted(p.name for p in out_t.glob("*.csv"))
+    match, mismatch, errors = filecmp.cmpfiles(out_t, out_j, csvs,
+                                               shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
 
 
 def test_serve_status_trace_subcommands(tmp_path, capsys):

@@ -22,7 +22,8 @@ solver's ``eps_rel`` and iteration counts within one check window; a small
 ``run_design`` and ``run_montecarlo`` on the card give the CPU run's
 finalists and pinned samples, and the Monte-Carlo replay is byte-identical;
 the scenario service warms the card at start and serves two coalesced
-requests in one round on the banded kernel.
+requests in one round on the banded kernel; a spawned fleet replica
+serves a request on cuda:0.
 """
 import numpy as np
 import pytest
@@ -508,3 +509,36 @@ def test_service_on_card_coalesces_two_requests(cuda):
         got = res.instances[k].objective_values["Total Objective"].to_numpy()
         assert _rel(got, want).max() < 1e-6
     svc.close()
+
+
+@pytest.mark.cuda
+def test_spawned_replica_serves_on_card(cuda, tmp_path):
+    """A spawned port replica (``python -m dervet_tpu_torch serve
+    --device cuda:0``) behind the fleet router serves one request (3
+    January windows with the daily-cycle rows) on the card: every window
+    certified, every device group on cuda:0 with kernel launches."""
+    import json
+
+    from dervet_tpu_torch.service import FleetRouter, spawn_replica
+    log = open(tmp_path / "replica.log", "w")
+    rep = spawn_replica(tmp_path / "r0", name="r0", device="cuda:0",
+                        stdout=log, stderr=log)
+    router = FleetRouter([rep], fleet_dir=tmp_path / "fleet",
+                         heartbeat_timeout_s=120.0).start()
+    try:
+        cases = dict(enumerate(benchlib.synthetic_sensitivity_cases(
+            3, months=1, daily_cycle_limit=1)))
+        res = router.submit(cases, request_id="g0",
+                            deadline_s=600.0).result(timeout=600)
+        assert res.replica == "r0"
+        health = res.load_run_health()
+        assert health["certification"]["windows_certified"] == 3
+        assert health["windows"]["cpu_fallback"] == 0
+        led = json.loads((res.results_dir / "solve_ledger.g0.json")
+                         .read_text())
+        dev = [g for g in led["groups"] if g.get("backend") == "torch"]
+        assert dev and all(g["device"] == "cuda:0" for g in dev)
+        assert sum(g["kernel_launches"] for g in dev) > 0
+    finally:
+        router.close()
+        log.close()

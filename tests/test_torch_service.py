@@ -29,9 +29,10 @@ JAX package's, on the CPU.
   shape/device/dtype errors are not;
 * without a GPU, ``ScenarioService()``, ``warmup_device()`` and ``serve``
   without ``--device`` raise before anything is admitted;
-* ``serve --once`` serves pickled payloads on both backends and parks a
-  portfolio request with its typed error; ``serve`` in its own process
-  drains on SIGTERM and exits 0.
+* ``serve --once`` serves pickled payloads and a ``portfolio.json`` on
+  both backends and parks a malformed portfolio request with its typed
+  error; ``serve`` in its own process drains on SIGTERM and exits 0;
+  a malformed portfolio request is refused at admission.
 """
 import filecmp
 import math
@@ -732,14 +733,22 @@ def test_open_certify_breaker_refuses_the_round():
 # ---------------------------------------------------------------------------
 
 def test_portfolio_refused_at_admission(tmp_path):
+    """Portfolio requests are served now; a malformed one is refused at
+    admission, typed, with nothing queued: a one-site spec, a shard with
+    no sites (directly and as a pickled spool payload)."""
+    from dervet_tpu_torch.portfolio import PortfolioSpec
+    from dervet_tpu_torch.portfolio.service import \
+        synthetic_portfolio_members
     svc = _service()
-    with pytest.raises(ParameterError, match="portfolio/"):
-        svc.submit_portfolio(object(), request_id="p")
-    with pytest.raises(ParameterError, match="portfolio/"):
+    one_site = PortfolioSpec(members=synthetic_portfolio_members(
+        1, hours=48, window=24), export_cap_kw=1e9)
+    with pytest.raises(ParameterError, match=">= 2 sites"):
+        svc.submit_portfolio(one_site, request_id="p")
+    with pytest.raises(ValueError, match="non-empty 'sites'"):
         svc.submit_portfolio_shard({"sites": {}}, request_id="s")
     path = tmp_path / "shard.pkl"
     path.write_bytes(pickle.dumps({"portfolio_shard": {"sites": {}}}))
-    with pytest.raises(ParameterError, match="portfolio/"):
+    with pytest.raises(ValueError, match="non-empty 'sites'"):
         svc.submit_pickle(path, request_id="s2")
     assert svc.queue.depth() == 0 and not svc._active_ids
     svc.close()
@@ -800,7 +809,11 @@ def test_serve_once_spool(backend, tmp_path):
     for rid, (n, bump) in {"p1": (1, 0.2), "p2": (2, 0.4)}.items():
         (spool / "incoming" / f"{rid}.pkl").write_bytes(
             pickle.dumps(_payload(n, bump)))
-    (spool / "incoming" / "folio.json").write_text(
+    (spool / "incoming" / "folio.json").write_text(json.dumps(
+        {"portfolio": {"synthetic_members": {"sites": 2, "hours": 48,
+                                             "window": 24},
+                       "export_cap_kw": 1e9, "max_outer": 4}}))
+    (spool / "incoming" / "bad.json").write_text(
         json.dumps({"portfolio": {"sites": []}}))
     rc = serve_main([str(spool), "--once", "--backend", backend,
                      "--device", "cpu", "--heartbeat-s", "0"])
@@ -812,17 +825,22 @@ def test_serve_once_spool(backend, tmp_path):
         assert (spool / "done" / f"{rid}.pkl").exists()
         health = json.loads((out / f"run_health.{rid}.json").read_text())
         assert health["fidelity"] == "certified"
-    err = json.loads((spool / "failed" / "folio.json.error.json")
+    folio = json.loads((spool / "results" / "folio" / "portfolio.json")
+                       .read_text())
+    assert folio["converged"] and folio["certification"]["verdict"] in (
+        "certified", "certified_loose")
+    assert (spool / "done" / "folio.json").exists()
+    err = json.loads((spool / "failed" / "bad.json.error.json")
                      .read_text())
-    assert err["error"] == "ParameterError" and "portfolio/" in \
+    assert err["error"] == "ParameterError" and "members" in \
         err["message"]
     metrics = json.loads((spool / "service_metrics.json").read_text())
-    assert metrics["requests"]["completed"] == 2
+    assert metrics["requests"]["completed"] == 3
     assert metrics["service"]["backend"] == backend
     states = journal.ServiceJournal.replay_path(
         spool / "service_journal.jsonl")
     assert {r: s["state"] for r, s in states.items()} == \
-        {"p1": "completed", "p2": "completed"}
+        {"p1": "completed", "p2": "completed", "folio": "completed"}
 
 
 def test_serve_loop_drains_on_sigterm(tmp_path):
