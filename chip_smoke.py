@@ -37,7 +37,10 @@ Phases:
                then the dense kernel at the pairs phases 10-12 launch
                (the weekly structure at the bucket widths 8-512, the
                24-hour remainder at 8, both also with the daily-cycle
-               rows, and the service's warm-up LP at 8);
+               rows, and the service's warm-up LP at 8); and both kernels
+               at the widths phase 13 launches (the three monthly
+               structures at its elastic groups' 448, 256 and 64, the
+               weekly structure at a 208-wide shard);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -153,7 +156,32 @@ Phases:
                within the gap tolerance, and 16 sites in 2 shards over
                phase 11's fleet: each shard on one replica round after
                round, objective and duals within 1e-6 of the monolithic
-               card solve, bytes on the wire by round logged.
+               card solve, bytes on the wire by round logged;
+ 13. parallel — multi-device dispatch on the one card: the first 64
+               of phase 3's cases through the elastic scheduler with one
+               worker (every window certified, no CPU rescue; against
+               phase 3, whose groups are twice as wide: every case
+               bit-equal and a sample of cases' CSVs byte-identical),
+               then with two
+               workers on cuda:0 (``elastic.visible_devices`` replaced
+               by ``[cuda:0, cuda:0]``, each worker on a CUDA stream of
+               its own) and slot 1 a straggler
+               (``DERVET_TPU_FAULT_STRAGGLER``): at least one steal, every
+               case bit-equal to the one-worker run, each slot's groups,
+               windows and occupancy logged; every launch of both runs at
+               a (structure, batch) pair phase 2 checked;
+               ``solve_batch_sharded`` over
+               ``[cuda:0, cuda:0]`` on the main 31-day structure at an
+               odd batch (895) and the weekly structure (415): objectives
+               within 1e-5 of the unsharded card solve (bit-equality
+               logged), the same converged count, each shard's launches
+               at a pair phase 2 checked; the 5-minute year
+               window (T = 105,120) row-sharded at world 1 on NCCL
+               (``solve_time_sharded``; its all-reduces counted and timed)
+               within 2e-3 of HiGHS, and a 5-minute month at world 2 on
+               gloo, both ranks on cuda:0, within 5e-4 (objective) and
+               5e-3 (x) of the unsharded card solve; the three ranks run
+               at once, beside HiGHS and the unsharded card solves.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -296,6 +324,35 @@ PORTFOLIO_HOURS, PORTFOLIO_WINDOW = 336, 168
 PORTFOLIO_SITE_WINDOWS = 2
 PORTFOLIO_GAP, PORTFOLIO_MAX_OUTER = 1e-3, 40
 PORTFOLIO_SHARDS = 2
+# phase 13 (parallel): the first PARALLEL_CASES of phase 3's cases
+# through the elastic scheduler with one worker, then two workers on
+# cuda:0 (the device seam) with the straggler drill on slot 1, whose
+# sleep must outlast the other worker's group so that its queued group
+# is stolen; the sharded scenario axis on the main 31-day structure at an
+# odd batch and the weekly structure; the time-sharded 5-minute year
+# window at world 1 (NCCL) and a 5-minute month at world 2 (gloo, both
+# ranks on the one card), against HiGHS and the unsharded card solve.
+# The elastic runs take 64 of the 128 cases: the whole smoke with 128
+# took 1,069.7 s of its 1,200 s on the H100
+PARALLEL_DEVICE = "cuda:0"
+PARALLEL_CASES = 64
+PARALLEL_CSV_EVERY = 8
+PARALLEL_STRAGGLER_S = 12.0
+SHARD_BATCHES = {744: 895, 168: 415}
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-4
+TS_YEAR = {"dt": 1 / 12, "n": "year"}
+TS_MONTH = {"dt": 1 / 12, "n": "month"}
+TS_HIGHS_RTOL = 2e-3
+TS_OBJ_RTOL, TS_X_RTOL = 5e-4, 5e-3
+TS_TIMEOUT_S = 600
+# the widths phase 13 launches at, which phase 2 holds against the plain
+# version too: the elastic runs' groups (phase 3's months at
+# PARALLEL_CASES; they compact to the bucket grid) and each shard of the
+# split batches
+SHARDS = 2
+PARALLEL_PAIRS = {744: (7 * PARALLEL_CASES, -(-SHARD_BATCHES[744] // SHARDS)),
+                  720: (4 * PARALLEL_CASES,), 672: (PARALLEL_CASES,),
+                  168: (-(-SHARD_BATCHES[168] // SHARDS),)}
 
 
 def log(*a):
@@ -769,7 +826,8 @@ def pair_phase(records):
     its bound, and the widest groups' real batches timed too (the
     padding's cost); then the dense kernel at the pairs phases 10-12
     launch (``DENSE_PAIRS``, ``DAILY_DENSE_PAIRS``, the warm-up LP), from
-    the mid-solve state.  Returns {(m, n, B): record}."""
+    the mid-solve state; both kernels also at the widths phase 13
+    launches (``PARALLEL_PAIRS``).  Returns {(m, n, B): record}."""
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
@@ -781,7 +839,8 @@ def pair_phase(records):
         solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
         check(fc.kernel_for(solver.op) == fc.KERNEL_BANDED,
               f"{days}-day window is not banded")
-        for B in GRID_BATCHES + REAL_BATCHES[T]:
+        for B in dict.fromkeys(GRID_BATCHES + REAL_BATCHES[T]
+                               + PARALLEL_PAIRS[T]):
             starts = [("mid-solve", chunk_inputs(solver, B, seed=B))]
             if B <= SEEDED_MAX_BATCH:
                 starts.append(("seeded", seeded_inputs(solver, B, B + 1)))
@@ -826,7 +885,9 @@ def pair_phase(records):
                 "grid": B in GRID_BATCHES, "solver": solver}
     from dervet_tpu_torch.device import _warmup_lp
     weekly = window_lps(168, 0)
-    dense = [(f"weekly {T}h", weekly[T], DENSE_PAIRS[T]) for T in DENSE_PAIRS]
+    dense = [(f"weekly {T}h", weekly[T],
+              DENSE_PAIRS[T] + PARALLEL_PAIRS.get(T, ()))
+             for T in DENSE_PAIRS]
     daily = window_lps(168, 1)
     dense += [(f"weekly {T}h, daily-cycle rows", daily[T],
                DAILY_DENSE_PAIRS[T]) for T in DAILY_DENSE_PAIRS]
@@ -872,7 +933,7 @@ def pair_phase(records):
                 "seeded": False, "grid": True, "solver": solver}
     if failures:
         raise AssertionError("kernel disagrees with its plain version at "
-                             "a phase 8-10 pair: "
+                             "a phase 8-13 pair: "
                              + "; ".join(failures))
     return pairs
 
@@ -1025,6 +1086,7 @@ def main_phases(records, checked, profile=False):
     # 5. cross-check against exact HiGHS on the first 4 cases
     check_against_highs(benchlib.synthetic_sensitivity_cases(
         MAIN_CASES, daily_cycle_limit=1)[:4], torch_obj, "check")
+    return res
 
 
 def check_against_highs(ref_cases, torch_obj, what):
@@ -2802,6 +2864,337 @@ def portfolio_phase(records, pairs, fleet):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-device dispatch (parallel/*)
+# ---------------------------------------------------------------------------
+
+def env_set(**env):
+    """Set (a value) or unset (None) environment variables for a block;
+    the environment is restored after it."""
+    import contextlib
+    import os
+    from unittest import mock
+
+    @contextlib.contextmanager
+    def block():
+        with mock.patch.dict(os.environ):
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = str(v)
+            yield
+    return block()
+
+
+def same_answers(a, b):
+    """Keys of ``a``'s cases whose objective values or solution arrays
+    differ in any bit from the same cases in ``b``."""
+    import numpy as np
+    check(set(a.instances) <= set(b.instances),
+          "parallel: the two runs hold other cases")
+    bad = []
+    for k, ia in a.instances.items():
+        sa, sb = ia.scenario, b.instances[k].scenario
+        if not (sa.objective_values == sb.objective_values
+                and set(sa._solution) == set(sb._solution)
+                and all(np.array_equal(sa._solution[n], sb._solution[n])
+                        for n in sa._solution)):
+            bad.append(k)
+    return bad
+
+
+def sample_csvs(res, keys):
+    """The CSV bytes ``CaseResult.save_as_csv`` writes for ``keys``."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        from pathlib import Path
+        for k in keys:
+            res.instances[k].save_as_csv(Path(d), str(k))
+        out.update(csv_bytes(d))
+    return out
+
+
+def ledger_groups(led):
+    return sorted((g["m"], g["n"], g["batch"], g.get("padded_to"))
+                  for g in led["groups"] if g.get("rung") == "initial")
+
+
+def launch_widths():
+    """A block that records the (kernel, m, n, batch) of every chunk-
+    kernel launch made in it, from any thread: the launch wrapper's own
+    arguments, so no path's launches escape the record."""
+    import contextlib
+    from dervet_tpu_torch.ops import fused_chunk as fc
+
+    @contextlib.contextmanager
+    def block():
+        seen, launch = set(), fc._launch
+
+        def record(kernel, state, part, B, m, n, *a, **kw):
+            out = launch(kernel, state, part, B, m, n, *a, **kw)
+            seen.add((kernel, m, n, B))
+            return out
+        fc._launch = record
+        try:
+            yield seen
+        finally:
+            fc._launch = launch
+    return block()
+
+
+def check_launch_widths(seen, pairs, what):
+    """Every launch ``launch_widths`` recorded ran the kernel its op
+    takes at a (structure, batch) pair phase 2 held against the plain
+    version."""
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    check(seen, f"{what}: no kernel launched")
+    for kernel, m, n, B in sorted(seen):
+        check((m, n, B) in pairs, f"{what}: {kernel} launched at (m, n, "
+                                  f"batch) {(m, n, B)}, a pair phase 2 "
+                                  "did not check")
+        check(fc.kernel_for(pairs[(m, n, B)]["op"]) == kernel,
+              f"{what}: {kernel} launched on the {(m, n)} structure")
+    log(f"[{what}] launches at (kernel, m, n, batch) {sorted(seen)}")
+
+
+def elastic_run(what, checked, pairs, n_cases):
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    cases = benchlib.synthetic_sensitivity_cases(
+        MAIN_CASES, daily_cycle_limit=1)[:n_cases]
+    fc.reset_launch_counts()
+    with launch_widths() as seen:
+        res, wall = solve_cases(cases, "torch")
+    launches = dict(fc.LAUNCHES)
+    led = res.solve_ledger
+    el = led.get("elastic") or {}
+    log(f"[{what}] {n_cases} cases x 12 months: {wall:.2f} s wall, "
+        f"launches {launches}; elastic {json.dumps(el)}")
+    check_certified(res, n_cases * 12, what)
+    check_ledger(res, fc.KERNEL_BANDED, checked[fc.KERNEL_BANDED], what)
+    check_launch_widths(seen, pairs, what)
+    check(led["totals"]["cpu_rescued"] == 0,
+          f"{what}: cpu_rescued {led['totals']['cpu_rescued']}")
+    check(el, f"{what}: the ledger has no elastic section")
+    check(sum(d["windows"] for d in el["devices"].values())
+          == led["totals"]["windows"] == n_cases * 12,
+          f"{what}: the devices' windows do not sum to the round")
+    for g in led["groups"]:
+        check(isinstance(g.get("device"), int),
+              f"{what}: group without a device slot: {g.get('device')}")
+    return res, wall, launches
+
+
+def parallel_phase(records, checked, pairs, main_res):
+    """Phase 13: the elastic scheduler with one worker and with two
+    workers on cuda:0 (straggler drill, steals, byte-identical answers),
+    the scenario axis split over [cuda:0, cuda:0], and the time-sharded
+    5-minute year (world 1, NCCL) and month (world 2, gloo)."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops import cpu_ref
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    from dervet_tpu_torch.parallel import elastic
+    from dervet_tpu_torch.parallel.mesh import solve_batch_sharded
+    from dervet_tpu_torch.parallel.timeshard import solve_time_sharded
+    card = torch.device(PARALLEL_DEVICE)
+    launches_by = {k: 0 for k in fc.KERNELS}
+
+    # 13.1 elastic, one worker, against phase 3's pipeline run
+    with env_set(**{elastic.ELASTIC_DEVICES_ENV: "1",
+                    elastic.ELASTIC_ENV: None}):
+        res1, wall1, l1 = elastic_run("parallel: elastic 1",
+                                      checked, pairs, PARALLEL_CASES)
+    for k, n in l1.items():
+        launches_by[k] += n
+    el1 = res1.solve_ledger["elastic"]
+    check(el1["n_devices"] == 1, f"elastic 1: {el1['n_devices']} devices")
+    keys = sorted(res1.instances)[::PARALLEL_CSV_EVERY]
+    g3, g1 = (ledger_groups(r.solve_ledger) for r in (main_res, res1))
+    log(f"[parallel] groups (m, n, batch, padded_to): phase 3 {g3}, "
+        f"elastic 1 {g1}")
+    # the same windows in groups of other widths: each instance's
+    # iterations are its own, whatever the batch beside it
+    bad = same_answers(res1, main_res)
+    check(not bad, f"elastic 1: cases {bad[:8]} differ from phase 3")
+    check(sample_csvs(main_res, keys) == sample_csvs(res1, keys),
+          "elastic 1: CSVs differ from phase 3's")
+    log(f"[parallel] elastic 1 vs phase 3: every case's objectives and "
+        f"solutions bit-equal, CSVs of cases {keys} byte-identical")
+
+    # 13.2 two workers on cuda:0 (two streams), straggler on slot 1
+    seam = elastic.visible_devices
+    elastic.visible_devices = lambda device=None: [card, card]
+    try:
+        with env_set(**{elastic.ELASTIC_DEVICES_ENV: None,
+                        elastic.ELASTIC_ENV: None,
+                        "DERVET_TPU_FAULT_STRAGGLER": "1",
+                        "DERVET_TPU_FAULT_STRAGGLER_DEVICE": "1",
+                        "DERVET_TPU_FAULT_STRAGGLER_S":
+                            PARALLEL_STRAGGLER_S}):
+            res2, wall2, l2 = elastic_run("parallel: elastic 2",
+                                          checked, pairs, PARALLEL_CASES)
+    finally:
+        elastic.visible_devices = seam
+    for k, n in l2.items():
+        launches_by[k] += n
+    led2 = res2.solve_ledger
+    el2 = led2["elastic"]
+    for d, rec in sorted(el2["devices"].items()):
+        log(f"[parallel] elastic 2 slot {d}: groups {rec['groups']}, "
+            f"windows {rec['windows']}, busy {rec['busy_s']} s, occupancy "
+            f"{rec['occupancy']}, steals in/out {rec['steals_in']}/"
+            f"{rec['steals_out']}, accounted {rec['accounted_fraction']}")
+    stolen = [(g["m"], g["batch"], g["device"]) for g in led2["groups"]
+              if g.get("stolen")]
+    log(f"[parallel] round wall: elastic 1 {el1['round_wall_s']} s "
+        f"({wall1:.2f} s in all), elastic 2 {el2['round_wall_s']} s "
+        f"({wall2:.2f} s, slot 1 sleeping {PARALLEL_STRAGGLER_S} s a "
+        f"group); steals {el2['steals']}; stolen groups {stolen}")
+    check(el2["n_devices"] == 2 and el2["n_steals"] >= 1,
+          f"elastic 2: {el2['n_steals']} steals over {el2['n_devices']}")
+    bad = same_answers(res1, res2)
+    check(not bad, f"elastic 2: cases {bad[:8]} differ from elastic 1")
+    check(sample_csvs(res1, keys) == sample_csvs(res2, keys),
+          "elastic 2: CSVs differ from elastic 1's")
+    log(f"[parallel] elastic 2 vs elastic 1: every case bit-equal, CSVs "
+        f"of cases {keys} byte-identical")
+    del main_res, res1, res2
+
+    # 13.3 the scenario axis split over [cuda:0, cuda:0]
+    opts = PDHGOptions(cpu_rescue_after=None)
+    lps = {**{T: lp for T, lp in window_lps("month", 1).items()
+              if T == 744}, **{168: window_lps(168, 0)[168]}}
+    for T, B in SHARD_BATCHES.items():
+        lp = lps[T]
+        rng = np.random.default_rng(T)
+        mult = rng.lognormal(0.0, 0.15, (B, lp.n))
+        C = np.where(lp.c != 0, mult * lp.c, 0.0)
+        solver = CompiledLPSolver(lp, opts, device=card)
+        t0 = time.perf_counter()
+        ref = solver.solve(c=C)
+        torch.cuda.synchronize()
+        t_un = time.perf_counter() - t0
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with launch_widths() as seen:
+            res, st = solve_batch_sharded(solver, [card] * SHARDS, c=C)
+            torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t0
+        for k, n in fc.LAUNCHES.items():
+            launches_by[k] += n
+        a, b = res.obj.cpu().numpy(), ref.obj.cpu().numpy()
+        gap = np.abs(a - b)
+        ok = bool((gap <= SHARD_ATOL + SHARD_RTOL * np.abs(b)).all())
+        n_ref = int(ref.converged.sum())
+        log(f"[parallel] sharded {lp.m}x{lp.n} B={B} over {SHARDS} x "
+            f"cuda:0: "
+            f"{t_sh:.3f} s (unsharded {t_un:.3f} s), launches "
+            f"{dict(fc.LAUNCHES)}; {json.dumps(st._asdict())}; unsharded "
+            f"converged {n_ref}; objective gap max "
+            f"{float((gap / np.maximum(np.abs(b), 1.0)).max()):.3e} rel, "
+            f"bit-equal {bool((a == b).all())} "
+            f"({int((a == b).sum())} of {B} instances)")
+        check_launch_widths(seen, pairs, f"parallel: sharded {lp.m}x{lp.n}")
+        check(ok, f"sharded {lp.m}x{lp.n}: objectives off by {gap.max()}")
+        check(st.n_converged == n_ref,
+              f"sharded {lp.m}x{lp.n}: {st.n_converged} converged, "
+              f"unsharded {n_ref}")
+    for k, n in launches_by.items():
+        records[k].setdefault("launches_by_run", {})["parallel"] = n
+    log(f"[parallel] launches by kernel {launches_by}")
+    check(launches_by[fc.KERNEL_BANDED] > 0
+          and launches_by[fc.KERNEL_DENSE] > 0,
+          f"parallel: a kernel never launched {launches_by}")
+
+    # 13.4-13.5 the 5-minute year row-sharded at world 1 on NCCL, and a
+    # 5-minute month at world 2 on gloo with both ranks on cuda:0: the
+    # three ranks (processes of their own) run while this process solves
+    # the same LPs on HiGHS and unsharded on the card.  Every one of
+    # these solves is launch-bound at one instance, so they share the
+    # card at little cost to each other; their walls are taken together
+    t0 = time.perf_counter()
+    year = benchlib.window_lps(benchlib.synthetic_case(**TS_YEAR))
+    month = benchlib.window_lps(benchlib.synthetic_case(**TS_MONTH))[0]
+    check(len(year) == 1, f"the year case has {len(year)} windows")
+    year = year[0]
+    log(f"[parallel] year window {year.m}x{year.n}, month window "
+        f"{month.m}x{month.n}, built in {time.perf_counter() - t0:.1f} s")
+    st_y, st_m = {}, {}
+    join_y = timed_in_thread(lambda: solve_time_sharded(
+        year, 1, backend="nccl", opts=opts, timeout_s=TS_TIMEOUT_S,
+        stats=st_y))
+    join_m = timed_in_thread(lambda: solve_time_sharded(
+        month, 2, backend="gloo", device=card, opts=opts,
+        timeout_s=TS_TIMEOUT_S, stats=st_m))
+    t0 = time.perf_counter()
+    hi = cpu_ref.solve_lp_cpu(year)
+    t_hi = time.perf_counter() - t0
+    unsharded = {}
+    for name, lp in (("year", year), ("month", month)):
+        t0 = time.perf_counter()
+        unsharded[name] = CompiledLPSolver(lp, opts, device=card).solve()
+        torch.cuda.synchronize()
+        unsharded[name + "_s"] = time.perf_counter() - t0
+    (ts, t_ts), (tm, t_tm) = join_y(), join_m()
+
+    un = unsharded["year"]
+    rel = abs(float(ts.obj) - hi.obj) / max(1.0, abs(hi.obj))
+    log(f"[parallel] time-sharded year, world 1, nccl: {t_ts:.2f} s with "
+        f"the spawn ({json.dumps(st_y)}), converged {bool(ts.converged)}, "
+        f"iterations {int(ts.iters)}, objective {float(ts.obj):.6f}, "
+        f"HiGHS {hi.obj:.6f} ({t_hi:.2f} s): rel {rel:.3e}; unsharded "
+        f"card solve {unsharded['year_s']:.2f} s, iterations "
+        f"{int(un.iters)}, objective {float(un.obj):.6f}, converged "
+        f"{bool(un.converged)}")
+    check(bool(ts.converged) and rel < TS_HIGHS_RTOL,
+          f"time-sharded year: converged {bool(ts.converged)}, rel {rel}")
+    check(ts.y.shape == (year.m,), f"time-sharded year: y {ts.y.shape}")
+
+    un = unsharded["month"]
+    obj_rel = abs(float(tm.obj) - float(un.obj)) / max(1.0, abs(float(
+        un.obj)))
+    xs, xu = tm.x.numpy(), un.x.cpu().numpy()
+    x_rel = float(np.abs(xs - xu).max() / max(1.0, np.abs(xu).max()))
+    log(f"[parallel] time-sharded month, world 2, gloo on cuda:0: "
+        f"{t_tm:.2f} s with the spawn ({json.dumps(st_m)}), converged "
+        f"{bool(tm.converged)}, iterations {int(tm.iters)}; unsharded card "
+        f"solve {unsharded['month_s']:.2f} s, iterations {int(un.iters)}; "
+        f"objective rel {obj_rel:.3e}, x rel {x_rel:.3e}")
+    check(bool(tm.converged) and obj_rel < TS_OBJ_RTOL
+          and x_rel < TS_X_RTOL,
+          f"time-sharded month: objective {obj_rel}, x {x_rel}")
+    check(tm.y.shape == (month.m,), f"time-sharded month: y {tm.y.shape}")
+
+
+def timed_in_thread(fn):
+    """Start ``fn`` on a thread of its own; the returned ``join()`` gives
+    ``(its result, its wall seconds)`` or raises its error."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn()
+        except BaseException as e:      # raised again by join()
+            box["err"] = e
+        box["s"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"], box["s"]
+    return join
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2853,7 +3246,7 @@ def main() -> int:
     pairs = pair_phase(records)
     log(f"[pairs] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    main_phases(records, checked, profile=args.profile)
+    main_res = main_phases(records, checked, profile=args.profile)
     log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
     for kind in RUNS:
         t0 = time.perf_counter()
@@ -2874,6 +3267,9 @@ def main() -> int:
         log(f"[portfolio] done in {time.perf_counter() - t0:.1f} s")
     finally:
         fleet.close()
+    t0 = time.perf_counter()
+    parallel_phase(records, checked, pairs, main_res)
+    log(f"[parallel] done in {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     card = card_line()
     print(card)

@@ -347,14 +347,16 @@ def screen_candidates(case, candidates: List[Candidate], *,
         all_failed = None
         with certify.policy_override(policy):
             try:
-                # no elastic=False here: this run_dispatch drives one
-                # device and has no multi-device scheduler to turn off
+                # one wide structure group — split the single batch
+                # over the devices rather than handing it to the
+                # elastic scheduler
                 run_dispatch(round_scens, backend=backend,
                              solver_opts=opts,
                              solver_cache=caches.tier(
                                  rnd if screen_opts_override is None
                                  else "override"),
-                             supervisor=supervisor, device=device)
+                             supervisor=supervisor, device=device,
+                             elastic=False)
             except AggregatedSolverError as e:
                 all_failed = e      # every candidate failed this round
         # on a whole-round failure the scenarios' solve_metadata still

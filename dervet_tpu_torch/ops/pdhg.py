@@ -361,6 +361,24 @@ def _build_op(kind: str, leaves: dict, device, dtype=torch.float32) -> MatOp:
         wide_w=None if wide_w is None else f(wide_w), compact=compact)
 
 
+def op_to(op: MatOp, device) -> MatOp:
+    """``op`` with every tensor (K's compact forms included) copied to
+    ``device``."""
+    def t(a):
+        return a.to(device) if isinstance(a, torch.Tensor) else a
+
+    def ck(c):
+        return None if c is None else CompactK(*(t(a) for a in c))
+    if isinstance(op, DenseOp):
+        return DenseOp(t(op.Kh), compact=ck(op._compact))
+    if isinstance(op, EllOp):
+        return EllOp(*(t(a) for a in op))
+    return BandedOp(t(op.diags), op.offsets, op.m, op.n,
+                    ell=None if op.ell is None else op_to(op.ell, device),
+                    wide_rows=t(op.wide_rows), wide_w=t(op.wide_w),
+                    compact=ck(op._compact))
+
+
 def op_from_numpy(kind: str, leaves: dict, device=None):
     """``(op, dr, dc, eta)`` on ``device`` from numpy leaves: ``Kh`` for
     'dense'; ``diags``, ``offsets``, ``m``, ``n`` and optionally
@@ -687,16 +705,39 @@ def _norm(v):
     return torch.linalg.vector_norm(v, dim=-1)
 
 
-def _kkt_terms(op, x, y, c, q, l, u, eq_mask, dr, dc):
+class LocalRows:
+    """The row-space (m-dimension) reductions of :class:`_Solver`, as an
+    unsharded solve computes them: ``grad`` takes K^T y, ``sum`` a sum
+    over rows, ``norm`` a 2-norm over rows.  Every m-dimension reduction
+    of the solve goes through one of the three.  A solve whose rows are
+    split over ranks (``parallel/timeshard.py``) passes a subclass that
+    completes each partial result across the ranks — the counterpart of
+    the JAX package's ``_psum_if``/``_rnorm`` under ``axis=``."""
+
+    def grad(self, g):
+        return g
+
+    def sum(self, v):
+        return v.sum(-1)
+
+    def norm(self, v):
+        return _norm(v)
+
+
+LOCAL_ROWS = LocalRows()
+
+
+def _kkt_terms(op, x, y, c, q, l, u, eq_mask, dr, dc, rows=LOCAL_ROWS):
     """Residuals/objectives of the UNSCALED problem given scaled iterates
-    (x_unscaled = dc * x, y_unscaled = dr * y); each (B,)."""
+    (x_unscaled = dc * x, y_unscaled = dr * y); each (B,).  ``rows``
+    takes the row-space reductions (:class:`LocalRows`)."""
     xu = dc * x
     yu = dr * y
     Kx = op_matvec(op, x) / dr
-    KTy = op_rmatvec(op, y) / dc
+    KTy = rows.grad(op_rmatvec(op, y)) / dc
     r = q - Kx
     viol = torch.where(eq_mask, r.abs(), r.clamp_min(0.0))
-    prim_res = _norm(viol)
+    prim_res = rows.norm(viol)
     lam = c - KTy
     lam_pos = lam.clamp_min(0.0)
     lam_neg = lam.clamp_max(0.0)
@@ -707,7 +748,7 @@ def _kkt_terms(op, x, y, c, q, l, u, eq_mask, dr, dc):
         + torch.where(u_fin, zero, -lam_neg)
     dual_res = _norm(dres_vec)
     pobj = (c * xu).sum(-1)
-    dobj = (q * yu).sum(-1) + (torch.where(l_fin, lam_pos * l, zero)
+    dobj = rows.sum(q * yu) + (torch.where(l_fin, lam_pos * l, zero)
                                + torch.where(u_fin, lam_neg * u, zero)
                                ).sum(-1)
     gap = (pobj - dobj).abs()
@@ -722,14 +763,14 @@ def _converged(prim_res, dual_res, gap, pobj, dobj, q_norm, c_norm,
     return ok_p & ok_d & ok_g
 
 
-def _farkas_gap(op, y, q, l, u, dr, dc):
+def _farkas_gap(op, y, q, l, u, dr, dc, rows=LOCAL_ROWS):
     """Primal-infeasibility certificate quality of the dual direction
     ``y``: (gap, ray_violation, ||y_unscaled||), each (B,)."""
     yu = dr * y
-    ynorm = _norm(yu)
+    ynorm = rows.norm(yu)
     den = ynorm.clamp_min(1e-12)[:, None]
     yhat = yu / den
-    KTy = op_rmatvec(op, y) / dc / den
+    KTy = rows.grad(op_rmatvec(op, y)) / dc / den
     pos = KTy.clamp_min(0.0)
     neg = KTy.clamp_max(0.0)
     l_fin = torch.isfinite(l)
@@ -739,7 +780,7 @@ def _farkas_gap(op, y, q, l, u, dr, dc):
                 - torch.where(l_fin, zero, neg)).sum(-1)
     box_max = (torch.where(u_fin, pos * u, zero)
                + torch.where(l_fin, neg * l, zero)).sum(-1)
-    gap = (q * yhat).sum(-1) - box_max
+    gap = rows.sum(q * yhat) - box_max
     return gap, ray_viol, ynorm
 
 
@@ -765,10 +806,16 @@ class _Solver:
     ``finalize``) for one (m, n, n_eq) structure and option set — the
     counterpart of the JAX package's ``_make_solver`` closure, batched.
     ``use_kernel`` routes the iteration chunks through the CUDA kernels
-    (``fused_chunk.batched_chunk``); otherwise the plain chunk runs."""
+    (``fused_chunk.batched_chunk``); otherwise the plain chunk runs.
+
+    ``rows`` (a :class:`LocalRows`) takes every row-space reduction.  Left
+    unset, the solve is the unsharded one.  Set, ``m`` and ``n_eq`` are
+    this rank's row block's (its equality rows come first, as in the whole
+    LP) and the chunks run the plain version, whose K^T y goes through
+    ``rows.grad``: the kernels keep K^T y inside the block."""
 
     def __init__(self, opts: "PDHGOptions", m: int, n: int, n_eq: int,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, rows: Optional[LocalRows] = None):
         self.opts = opts
         self.m, self.n, self.n_eq = m, n, n_eq
         self.variant = resolved_variant(opts)
@@ -784,7 +831,8 @@ class _Solver:
         self.ce = ce
         self.sub = ce_min if self.adaptive else ce
         self.cadence_cap = (ce // self.sub) * self.sub
-        self.use_kernel = use_kernel
+        self.use_kernel = use_kernel and rows is None
+        self.rows = rows if rows is not None else LOCAL_ROWS
         self.launches = 0
 
     # -- pieces ---------------------------------------------------------
@@ -795,18 +843,20 @@ class _Solver:
         l_s = torch.where(torch.isfinite(l), l / dc, l)
         u_s = torch.where(torch.isfinite(u), u / dc, u)
         c2 = _norm(c_s)
-        q2 = _norm(q_s)
+        q2 = self.rows.norm(q_s)
         one = torch.ones((), dtype=c.dtype, device=c.device)
         omega0 = torch.where((c2 > 0) & (q2 > 0), c2 / q2.clamp_min(1e-12),
                              one)
-        return _Context(eq_mask, c_s, q_s, l_s, u_s, _norm(q), _norm(c),
-                        c, q, l, u, omega0, omega0 / 50.0, omega0 * 50.0)
+        return _Context(eq_mask, c_s, q_s, l_s, u_s, self.rows.norm(q),
+                        _norm(c), c, q, l, u, omega0, omega0 / 50.0,
+                        omega0 * 50.0)
 
     def pdhg_step(self, op, t: _Context, omega, eta, x, y):
         """One application of the PDHG operator T (the vanilla update)."""
         tau = (eta / omega)[:, None]
         sigma = (eta * omega)[:, None]
-        x1 = torch.clamp(x - tau * (t.c_s - op_rmatvec(op, y)), t.l_s, t.u_s)
+        grad = self.rows.grad(op_rmatvec(op, y))
+        x1 = torch.clamp(x - tau * (t.c_s - grad), t.l_s, t.u_s)
         y1 = y + sigma * (t.q_s - op_matvec(op, 2.0 * x1 - x))
         y1 = torch.where(t.eq_mask, y1, y1.clamp_min(0.0))
         return x1, y1
@@ -824,7 +874,8 @@ class _Solver:
         floor = fused_chunk.floor_of(self.m, self.n_eq, x.dtype, x.device)
         halp = self.variant == VARIANT_HALPERN
         return fused_chunk.plain_chunk(
-            lambda v: op_matvec(op, v), lambda v: op_rmatvec(op, v),
+            lambda v: op_matvec(op, v),
+            lambda v: self.rows.grad(op_rmatvec(op, v)),
             t.c_s, t.q_s, t.l_s, t.u_s, (eta / omega), (eta * omega), floor,
             x, y, xs, ys, self.sub, self.variant, self.alpha,
             k.to(x.dtype) if halp else None, ax, ay)
@@ -908,7 +959,7 @@ class _Solver:
 
     def _mu(self, op, t: _Context, x, y, dr, dc):
         pr, du, gp, po, do = _kkt_terms(op, x, y, t.c_us, t.q_us, t.l_us,
-                                        t.u_us, t.eq_mask, dr, dc)
+                                        t.u_us, t.eq_mask, dr, dc, self.rows)
         denom = 1.0 + po.abs() + do.abs()
         mu = torch.sqrt(pr * pr + du * du + (gp / denom) ** 2)
         return mu, (pr, du, gp, po, do)
@@ -937,7 +988,7 @@ class _Solver:
         conv_now = _converged(pr, du, gp, po, do, t.q_norm, t.c_norm,
                               o.eps_abs, o.eps_rel)
         fk_gap, fk_viol, ynorm = _farkas_gap(op, y, t.q_us, t.l_us, t.u_us,
-                                             dr, dc)
+                                             dr, dc, self.rows)
         scale_ref = 1.0 + t.q_norm
         cert = ((fk_gap > o.eps_infeas * scale_ref)
                 & (fk_viol <= o.eps_infeas * scale_ref)
@@ -952,7 +1003,7 @@ class _Solver:
             # current iterate; restart TO the current iterate
             xT, yT = self.pdhg_step(op, t, s.omega, eta, x, y)
             fp_res = torch.sqrt(((xT - x) ** 2).sum(-1)
-                                + ((yT - y) ** 2).sum(-1))
+                                + self.rows.sum((yT - y) ** 2))
             do_restart = ((fp_res <= o.fp_beta_sufficient * s.mu_restart)
                           | ((fp_res <= o.beta_necessary * s.mu_restart)
                              & (fp_res > s.mu_prev))
@@ -965,7 +1016,7 @@ class _Solver:
                           | artificial)
             restart_x, restart_y, mu_track = x_cand, y_cand, mu_cand
         dx = _norm(restart_x - s.x_restart)
-        dy = _norm(restart_y - s.y_restart)
+        dy = self.rows.norm(restart_y - s.y_restart)
         theta = o.primal_weight_smoothing
         new_omega = torch.where(
             (dx > 1e-10) & (dy > 1e-10),
@@ -1004,7 +1055,8 @@ class _Solver:
         x_out = torch.where(cv, final.done_x, final.x)
         y_out = torch.where(cv, final.done_y, final.y)
         pr, du, gp, po, do = _kkt_terms(op, x_out, y_out, t.c_us, t.q_us,
-                                        t.l_us, t.u_us, t.eq_mask, dr, dc)
+                                        t.l_us, t.u_us, t.eq_mask, dr, dc,
+                                        self.rows)
         f = self.opts.inaccurate_factor
         near = _converged(pr, du, gp, po, do, t.q_norm, t.c_norm,
                           self.opts.eps_abs * f, self.opts.eps_rel * f)
@@ -1036,6 +1088,21 @@ KERNEL_PLAIN = "torch_plain"
 FALLBACK_BACKEND = "backend"
 FALLBACK_UNSUPPORTED_SHAPE = "unsupported_shape"
 KERNEL_FALLBACK_REASONS = (FALLBACK_BACKEND, FALLBACK_UNSUPPORTED_SHAPE)
+
+
+def step_size(Kh_sp, opts: PDHGOptions) -> np.float32:
+    """The PDHG step ``safety / ||Kh||_2`` of the scaled operator, the
+    norm from a power iteration on the host (scipy, float64) with the
+    JAX package's seed and count."""
+    v = np.random.default_rng(0).standard_normal(Kh_sp.shape[1])
+    v /= np.linalg.norm(v)
+    sigma_sq = 1e-24
+    for _ in range(opts.power_iters):
+        w = Kh_sp.T @ (Kh_sp @ v)
+        sigma_sq = float(np.linalg.norm(w))
+        v = w / max(sigma_sq, 1e-30)
+    sigma_max = float(np.sqrt(sigma_sq))
+    return np.float32(opts.step_size_safety / max(sigma_max, 1e-12))
 
 
 def kernel_selection(solver: "CompiledLPSolver"
@@ -1079,17 +1146,7 @@ class CompiledLPSolver:
                           device=self.device)
         phases["op_build_s"] = _t() - t0
         t0 = _t()
-        # power iteration for ||Kh||_2 on the host (scipy, f64), the same
-        # seed and count as the JAX package
-        v = np.random.default_rng(0).standard_normal(lp.n)
-        v /= np.linalg.norm(v)
-        sigma_sq = 1e-24
-        for _ in range(self.opts.power_iters):
-            w = Kh_sp.T @ (Kh_sp @ v)
-            sigma_sq = float(np.linalg.norm(w))
-            v = w / max(sigma_sq, 1e-30)
-        sigma_max = float(np.sqrt(sigma_sq))
-        eta = np.float32(self.opts.step_size_safety / max(sigma_max, 1e-12))
+        eta = step_size(Kh_sp, self.opts)
         phases["power_iter_s"] = _t() - t0
         t0 = _t()
         dt = getattr(torch, np.dtype(self.opts.dtype).name)
@@ -1141,6 +1198,21 @@ class CompiledLPSolver:
         clone._solve_lock = threading.Lock()
         clone.last_stats = None
         clone._exec_shapes = set()
+        return clone
+
+    def to_device(self, device) -> "CompiledLPSolver":
+        """This solver on ``device``, sharing its preconditioning (no Ruiz
+        pass, no power iteration): on another device the op, ``dr``,
+        ``dc`` and ``eta`` are copied there; on the same device the clone
+        shares them.  Either way it has its own solve lock, so two
+        threads can solve on the pair at once."""
+        device = resolve_device(device)
+        clone = self.with_options(self.opts)
+        if device != self.device:
+            clone.device = device
+            clone.op = op_to(self.op, device)
+            clone.dr, clone.dc, clone.eta = (a.to(device) for a in
+                                             (self.dr, self.dc, self.eta))
         return clone
 
     def _to_device(self, arrs, stats: Optional[SolveStats]):

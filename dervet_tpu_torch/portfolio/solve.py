@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -518,6 +519,19 @@ def solve_portfolio(spec: PortfolioSpec, *, backend: str = "torch",
                           or f"pf-{_uuid.uuid4().hex[:10]}"))
     else:
         n_shards = 1 if degraded else spec.effective_shards(len(scens))
+        if n_shards > 1 and backend != "cpu":
+            from ..parallel import elastic as _elastic
+            if not _elastic.elastic_enabled() and \
+                    len(_elastic.visible_devices(device)) > 1:
+                # the plain pipeline splits every batch over all the
+                # devices and runs one such solve at a time; concurrent
+                # local shards would run several at once — clamp
+                TellUser.warning(
+                    "portfolio: DERVET_TPU_ELASTIC=0 splits every "
+                    "dispatch over all devices, one at a time "
+                    f"— ignoring shards={n_shards}, running the round "
+                    "monolithically")
+                n_shards = 1
         plan = plan_shards(scens, n_shards)
         if len(plan) > 1:
             executor = LocalShardExecutor(

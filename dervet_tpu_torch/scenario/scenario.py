@@ -12,8 +12,9 @@ Backend 'torch' runs the batched PDHG solver on the resolved device (the
 GPU unless the caller passes ``device="cpu"``), its iteration chunks in the
 hand-written CUDA kernels of ``ops/fused_chunk.py``; backend 'cpu' runs
 scipy/HiGHS per window for cross-validation — the reference's GLPK role.
-This package drives one device: the JAX package's multi-device sharded
-and elastic dispatch are not ported.
+With several visible devices, ``run_dispatch`` places structure groups
+across them (the elastic scheduler, ``parallel/elastic.py``) or splits
+each batch over them (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -994,7 +995,14 @@ class SolverCache:
     cache keeps a multi-year degradation case from re-preconditioning the
     same LP dozens of times.  Every solver of one cache lives on
     ``device`` (set by ``run_dispatch`` when left None; a name such as
-    ``"cuda"`` is resolved here)."""
+    ``"cuda"`` is resolved here).
+
+    Elastic dispatch (``parallel/elastic.py``) solves on per-device cache
+    SHARDS (``shard_for``): each holds solvers whose constants live on its
+    device, so the worker threads solve concurrently without sharing a
+    solver.  The warm-start memory, the iteration-baseline hints and the
+    key->device stickiness live on the ROOT cache, shared by every shard;
+    a persistent service keeps its shards across rounds."""
 
     def __init__(self, pad_grid: bool = False, warm_start: bool = False,
                  memory=None, device=None):
@@ -1005,7 +1013,11 @@ class SolverCache:
             from ..device import resolve_device
             device = resolve_device(device)
         self.device = device
+        self.device_index: Optional[int] = None
+        self._parent: Optional["SolverCache"] = None
+        self._shards: Dict[int, "SolverCache"] = {}
         self._iters_ewma: Dict[tuple, float] = {}
+        self._key_device: Dict[tuple, int] = {}
         # serving mode: pad each group's batch up to the compaction bucket
         # grid ({8, 32, 128, ...}); off for one-shot runs
         self.pad_grid = bool(pad_grid)
@@ -1038,31 +1050,119 @@ class SolverCache:
                 if base is not None:
                     solver = base.with_options(opts)
                 else:
-                    solver = CompiledLPSolver(lp0, opts, device=self.device)
+                    donor = self._donor(key)
+                    if donor is not None:
+                        # a sibling shard (or the root) already
+                        # preconditioned this structure: copy its
+                        # operator instead of re-running Ruiz + the
+                        # power iteration
+                        solver = donor.to_device(self.device)
+                    else:
+                        solver = CompiledLPSolver(lp0, opts,
+                                                  device=self.device)
                 self.solvers[key] = solver
                 self.builds += 1
+                self._mirror(key, built=True)
             else:
                 self.hits += 1
+                self._mirror(key, built=False)
         return solver
 
+    # -- elastic per-device shards (parallel/elastic.py) ---------------
+    def shard_for(self, device, index: int) -> "SolverCache":
+        """The per-device cache shard for ``device`` at scheduler slot
+        ``index`` (created on first use, persistent on this root cache so
+        a service's shards survive across rounds).  Shards share the
+        root's pad_grid policy and warm-start memory; their builds/hits
+        mirror into the root counters so dispatch metadata stays a single
+        surface."""
+        root = self._parent or self
+        with root._lock:
+            shard = root._shards.get(index)
+            if shard is None:
+                shard = SolverCache(pad_grid=root.pad_grid,
+                                    memory=root.memory, device=device)
+                shard.device_index = index
+                shard._parent = root
+                root._shards[index] = shard
+        return shard
+
+    def _donor(self, key):
+        """A solver for ``key`` on some OTHER shard (or the root) whose
+        preconditioning a new shard can copy.  Called under the shard's
+        lock; takes only the root's lock (shard -> root is the one
+        ordering used anywhere, so no deadlock)."""
+        root = self._parent
+        if root is None:
+            return None
+        with root._lock:
+            donor = root.solvers.get(key)
+            if donor is not None:
+                return donor
+            for shard in root._shards.values():
+                if shard is not self:
+                    donor = shard.solvers.get(key)
+                    if donor is not None:
+                        return donor
+        return None
+
+    def _mirror(self, key, built: bool) -> None:
+        """Mirror a shard's build/hit into the root counters and record
+        key->device stickiness (placement affinity: a structure solves
+        where its solver already lives)."""
+        root = self._parent
+        if root is None:
+            if self.device_index is not None:
+                self._key_device.setdefault(key, self.device_index)
+            return
+        with root._lock:
+            if built:
+                root.builds += 1
+            else:
+                root.hits += 1
+            if self.device_index is not None:
+                root._key_device.setdefault(key, self.device_index)
+
+    def device_index_for(self, key) -> Optional[int]:
+        """Sticky device slot for a structure key (None = unplaced)."""
+        root = self._parent or self
+        with root._lock:
+            return root._key_device.get(key)
+
     def structures_cached(self) -> int:
-        with self._lock:
-            return len(self.solvers)
+        """Distinct structure keys with a solver anywhere — the root plus
+        every per-device shard (the elastic path builds only in
+        shards)."""
+        root = self._parent or self
+        with root._lock:
+            keys = set(root.solvers)
+            for shard in root._shards.values():
+                keys.update(shard.solvers)
+        return len(keys)
 
     def clear(self) -> None:
-        with self._lock:
-            self.solvers.clear()
+        """Drop every solver (root + shards); stickiness resets with them
+        so placement re-balances from scratch."""
+        root = self._parent or self
+        with root._lock:
+            root.solvers.clear()
+            for shard in root._shards.values():
+                shard.solvers.clear()
+            root._key_device.clear()
 
     def note_iters(self, key, iters_p50: float) -> None:
-        """Rolling per-structure iteration baseline."""
-        with self._lock:
-            prev = self._iters_ewma.get(key)
-            self._iters_ewma[key] = (float(iters_p50) if prev is None
+        """Feed a group's measured iteration count into the rolling
+        per-structure baseline the elastic placement costs groups by."""
+        root = self._parent or self
+        with root._lock:
+            prev = root._iters_ewma.get(key)
+            root._iters_ewma[key] = (float(iters_p50) if prev is None
                                      else 0.5 * prev + 0.5 * iters_p50)
 
     def iters_hint(self, key) -> Optional[float]:
-        with self._lock:
-            return self._iters_ewma.get(key)
+        root = self._parent or self
+        with root._lock:
+            return root._iters_ewma.get(key)
 
 
 def batch_bucket(n: int) -> int:
@@ -1078,23 +1178,29 @@ def batch_bucket(n: int) -> int:
     return b
 
 
-def _batch_pad_to(cache, n: int) -> Optional[int]:
+def _batch_pad_to(cache, n: int, multi_dev: bool = False
+                  ) -> Optional[int]:
     """The bucket width a group of ``n`` instances should pad to, or
-    None when padding is off (no serving cache / ``pad_grid`` unset) or
-    inapplicable (n <= 1)."""
-    if cache is None or not getattr(cache, "pad_grid", False) or n <= 1:
+    None when padding is off (no serving cache / ``pad_grid`` unset),
+    inapplicable (n <= 1), or left to the sharded multi-device solve,
+    which pads to a device multiple itself."""
+    if cache is None or not getattr(cache, "pad_grid", False) or n <= 1 \
+            or multi_dev:
         return None
     b = batch_bucket(n)
     return b if b > n else None
 
 
-def _subset_pad_to(cache, n_mem: int, n_dev: int) -> Optional[int]:
+def _subset_pad_to(cache, n_mem: int, n_dev: int,
+                   multi_dev: bool = False) -> Optional[int]:
     """Bucket width for a warm-start-substitution-shrunken device subset
     (``n_dev`` of ``n_mem`` members still need the device): the FULL
-    group's bucket, so substitution never changes the batch shape."""
-    if cache is not None and getattr(cache, "pad_grid", False):
+    group's bucket, so substitution never changes the batch shape.  The
+    sharded multi-device solve keeps its own device-multiple padding."""
+    if cache is not None and not multi_dev \
+            and getattr(cache, "pad_grid", False):
         return batch_bucket(n_mem)
-    return _batch_pad_to(cache, n_dev)
+    return _batch_pad_to(cache, n_dev, multi_dev)
 
 
 def _stack_group_data(lps: List[LP], sdt, pad_to: Optional[int] = None):
@@ -1237,10 +1343,17 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
     import torch
     from ..ops import warmstart
     from ..ops.pdhg import SolveStats
+    from ..parallel import elastic as _elastic
     # caller-owned stats: the pipeline can route two same-structure
     # subgroups to ONE cached solver from different workers, and a shared
     # solver.last_stats read-back would cross-wire their ledger entries
     stats = SolveStats()
+    # a pinned ``device`` (elastic dispatch) keeps the group on ONE
+    # solver; with none pinned and several visible devices, a batch is
+    # split over all of them (parallel/mesh.py)
+    shard_devs = (_elastic.visible_devices(solver.device)
+                  if device is None else [])
+    multi_dev = len(shard_devs) > 1
     n_mem = len(lps)
 
     # ---- warm-start plan: exact-hit substitution + iterate seeds ----
@@ -1267,9 +1380,9 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
         # shape, and the subset pads back to that shape's bucket so
         # substitution never mints a new program (see _subset_pad_to)
         staged = None
-        pad_to = _subset_pad_to(cache, n_mem, len(lps_dev))
+        pad_to = _subset_pad_to(cache, n_mem, len(lps_dev), multi_dev)
     else:
-        pad_to = _batch_pad_to(cache, n_mem)
+        pad_to = _batch_pad_to(cache, n_mem, multi_dev)
 
     # iterate seeds for the device members: explicit retry seeds, or the
     # plan's near/failed-exact entries.  Zero rows reproduce the cold
@@ -1331,8 +1444,14 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                 Q = torch.as_tensor(np.asarray(Q), device=solver.device
                                     ).expand(pad_to or len(lps_dev),
                                              Q.shape[0])
-            res = solver.solve(c=C, q=Q, l=L, u=U, stats=stats,
-                               x0=X0, y0=Y0)
+            if multi_dev:
+                from ..parallel.mesh import solve_batch_sharded
+                res, _ = solve_batch_sharded(solver, shard_devs, c=C, q=Q,
+                                             l=L, u=U, stats=stats,
+                                             x0=X0, y0=Y0)
+            else:
+                res = solver.solve(c=C, q=Q, l=L, u=U, stats=stats,
+                                   x0=X0, y0=Y0)
         # one device->host fetch of every consumed result field (x, obj,
         # converged, iters, residuals, status — plus y only when the
         # warm-start memory or the dual certificate wants it)
@@ -1495,8 +1614,12 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                  **({"kernel_fallback": kern_why} if kern_why else {}),
                  **({"kernel_fallback_detail": kern_detail}
                     if kern_detail else {}),
-                 "device": str(solver.device),
-                 "sharded": False,
+                 # the elastic scheduler's slot, when it placed the group
+                 "device": (ledger_meta or {}).get("device",
+                                                   str(solver.device)),
+                 # single-window groups ride solver.solve even on several
+                 # devices — only real batches shard
+                 "sharded": bool(multi_dev and len(lps_dev) > 1),
                  "staged": staged is not None,
                  # serving bucket padding: the compiled shape this batch
                  # actually ran at (absent when unpadded)
@@ -2365,16 +2488,20 @@ def _pipeline_enabled() -> bool:
         not in ("0", "false", "off")
 
 
-def _pipeline_depth() -> int:
+def _pipeline_depth(multi_dev: bool = False) -> int:
     """In-flight group bound for the overlapped dispatch: 0 = serial
     reference mode (``DERVET_TPU_PIPELINE=0``); an explicit integer > 1 in
-    the env var pins the depth; default 2-3.  A worker spends its time
-    blocked in GIL-releasing device waits, so while worker A waits on
-    group A's status readback, worker B enqueues group B's next chunk."""
+    the env var pins the depth; 1 when each batch is split over several
+    devices (see the pipeline in ``_dispatch_phases``); default 2-3.  A
+    worker spends its time blocked in GIL-releasing device waits, so
+    while worker A waits on group A's status readback, worker B enqueues
+    group B's next chunk."""
     import os
     raw = os.environ.get(PIPELINE_ENV, "1").strip().lower()
     if raw in ("0", "false", "off"):
         return 0
+    if multi_dev:
+        return 1
     try:
         explicit = int(raw)
     except ValueError:
@@ -2542,7 +2669,7 @@ def summarize_solve_ledger(entries, dispatch_solve_s: float,
 def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
                  checkpoint_dir=None, supervisor=None,
                  on_case_solved=None, solver_cache=None,
-                 breaker_board=None, device=None) -> None:
+                 breaker_board=None, device=None, elastic=None) -> None:
     """Dispatch driver over one or many cases (VERDICT r2 #3/#7).
 
     Replaces the reference's serial sensitivity for-loop
@@ -2583,8 +2710,17 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
 
     ``device`` is where the 'torch' backend solves (``None`` -> the
     GPU, raising when none is visible; ``"cpu"`` runs the kernels' plain
-    versions).  One device per dispatch: the JAX package's sharded and
-    elastic multi-device paths are not ported."""
+    versions).
+
+    ``elastic`` is the dispatch's device-placement axis: None (default)
+    follows the ``DERVET_TPU_ELASTIC`` env policy — with several visible
+    devices, structure groups are placed across them and solved
+    concurrently (``parallel/elastic.py``); ``False`` forces the plain
+    pipeline, which splits each batch over the devices
+    (``parallel/mesh.py``).  Callers whose round is ONE wide structure
+    group — the design screen's candidate population — pass False:
+    splitting that single batch over every device beats placing it on
+    one, and the elastic scheduler has nothing to schedule across."""
     from ..utils.errors import PreemptedError
     from ..utils import supervisor as _sup
     if backend not in ("torch", "cpu"):
@@ -2594,7 +2730,20 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
                 else _sup.SolveWatchdog.from_env())
     if backend != "cpu":
         from ..device import resolve_device
+        from ..parallel import elastic as _elastic
         device = resolve_device(device)
+        if watchdog is not None and \
+                len(_elastic.visible_devices(device)) > 1:
+            # abandoning a solve split over several devices leaves its
+            # shard threads running on them, and the retry would start a
+            # SECOND split solve on the same devices under it.  A
+            # disabled watchdog degrades to the unguarded path; the
+            # checkpoint/manifest flush it protects still runs.
+            TellUser.warning(
+                f"{_sup.DEADLINE_ENV} ignored with several visible "
+                "devices: abandoning an in-flight sharded solve is unsafe "
+                "there — solve watchdog disabled")
+            watchdog = None
     manifest = _sup.load_manifest(checkpoint_dir) if checkpoint_dir else None
     for s in scenarios:
         entry = (manifest or {}).get("cases", {}).get(str(s.case.case_id))
@@ -2623,7 +2772,8 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
         _dispatch_phases(scenarios, backend, solver_opts, watchdog,
                          _batch_boundary, on_case_solved,
                          solver_cache=solver_cache,
-                         breaker_board=breaker_board, device=device)
+                         breaker_board=breaker_board, device=device,
+                         elastic=elastic)
     except PreemptedError as e:
         # graceful shutdown: any batched-up checkpoint state is flushed
         # (only the degradation path batches writes, in strides of 8 —
@@ -2654,7 +2804,7 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
 def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
                      _batch_boundary, on_case_solved=None,
                      solver_cache=None, breaker_board=None,
-                     device=None) -> None:
+                     device=None, elastic=None) -> None:
     """Phases 1 (structure-grouped) and 2 (degradation-stepped) of the
     batched dispatch; split out of ``run_dispatch`` so the preemption
     handler wraps exactly the interruptible region."""
@@ -2795,6 +2945,14 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
         return subgroups
 
     max_inflight = 0
+    elastic_stats = None
+    elastic_devs = None
+    multi_dev = False
+    if backend != "cpu":
+        from ..parallel import elastic as _elastic
+        multi_dev = len(_elastic.visible_devices(cache.device)) > 1
+        if pipeline_on and elastic is not False:
+            elastic_devs = _elastic.elastic_devices(backend, cache.device)
     if backend == "cpu" or not pipeline_on:
         # the exact-CPU path, and the strict serial reference mode
         # (DERVET_TPU_PIPELINE=0): assemble, solve, scatter one subgroup
@@ -2806,6 +2964,80 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             for k, its in split_exact(members).items():
                 scatter(its, solve_only(k, its)[1])
                 _batch_boundary()
+    elif elastic_devs is not None:
+        # ELASTIC multi-device dispatch (parallel/elastic.py): structure
+        # groups are PLACED across the devices (estimated cost + solver
+        # affinity) and each device runs its own in-flight pipeline — a
+        # worker thread on a CUDA stream of its own, a solver-cache
+        # shard, staged uploads, work stealing for stragglers.  Each
+        # group solves as one batched solve on its device — the SAME
+        # solve whatever the device count, so results are byte-identical
+        # across elastic schedules, placements and steals.  Scatter and
+        # preemption boundaries stay on THIS thread, like the pipeline.
+        max_inflight = len(elastic_devs)
+        sched = _elastic.ElasticScheduler(elastic_devs)
+
+        def _elastic_solve(dev, dev_idx, task):
+            faultinject.maybe_straggle(dev_idx)
+            shard = cache.shard_for(dev, dev_idx)
+            tags = {"device": dev_idx}
+            if task.stolen:
+                tags["stolen"] = True
+            t0 = time.perf_counter()
+            out = resolve_group(task.items, backend, solver_opts,
+                                key=task.key, cache=shard,
+                                watchdog=watchdog, staged=task.staged,
+                                ledger=ledger_entries, board=breaker_board,
+                                policy=cert_policy, device=dev,
+                                ledger_tags=tags)
+            dt_ = time.perf_counter() - t0
+            with phase_lock:
+                phase_acc["solve_s"] += dt_
+            return out
+
+        def _elastic_stage(dev, task):
+            # on the worker's thread, so on its stream: the upload is
+            # ordered before the solve that reads it
+            t0 = time.perf_counter()
+            staged = stage_group_data(
+                task.items, solver_opts, dev,
+                pad_to=_batch_pad_to(cache, len(task.items)))
+            with phase_lock:
+                phase_acc["stage_s"] += time.perf_counter() - t0
+            return staged
+
+        sched.start(_elastic_solve, _elastic_stage)
+        try:
+            while groups:
+                _, members = groups.popitem()
+                for k, its in split_exact(members).items():
+                    sched.submit(
+                        k, its,
+                        _elastic.estimate_group_cost(k, its, cache),
+                        affinity=cache.device_index_for(k))
+            sched.close_submissions()
+            # scatter in SUBMISSION order, not completion order: apply
+            # order drives the results surface's row order, and
+            # completion order varies with device timing run to run.
+            # Out-of-order completions buffer until their turn — the
+            # plain path's exact scatter sequence, reproduced.  A
+            # worker's error (a CUDA fault included) raises here.
+            done_buf: Dict[int, tuple] = {}
+            next_seq = 0
+            for task, result, err in sched.completions():
+                if err is not None:
+                    raise err
+                done_buf[task.seq] = (task, result)
+                while next_seq in done_buf:
+                    t, r = done_buf.pop(next_seq)
+                    next_seq += 1
+                    scatter(t.items, r)
+                    _batch_boundary()
+        finally:
+            # preemption/error: stop the workers (in-flight solves
+            # finish, queued groups are abandoned for the resume path)
+            sched.shutdown()
+        elastic_stats = sched.stats()
     else:
         # 2-stage pipeline: host LP assembly of group i overlaps the
         # device solve of groups < i.  Stacking + the host->device upload
@@ -2813,10 +3045,14 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
         # the workers hold only the solve and its status readbacks, and
         # results scatter on THIS thread (apply_subgroup mutates per-case
         # state).  In-flight work is bounded so peak LP memory stays a
-        # few subgroups, not the whole sweep.
+        # few subgroups, not the whole sweep.  With several devices each
+        # batch is split over all of them (solve_group), and ONE worker
+        # runs those split solves: two at once would run two shard
+        # threads on every device and interleave their chunks for no
+        # gain; host assembly still overlaps the in-flight solve.
         import collections
         import concurrent.futures as cf
-        max_inflight = _pipeline_depth()
+        max_inflight = _pipeline_depth(multi_dev)
         with cf.ThreadPoolExecutor(max_workers=max_inflight) as pool:
             futs = collections.deque()
             while groups:
@@ -2825,7 +3061,7 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
                     t0 = time.perf_counter()
                     staged = stage_group_data(
                         its, solver_opts, cache.device,
-                        pad_to=_batch_pad_to(cache, len(its)))
+                        pad_to=_batch_pad_to(cache, len(its), multi_dev))
                     phase_acc["stage_s"] += time.perf_counter() - t0
                     futs.append(pool.submit(solve_only, k, its, staged))
                     while len(futs) > max_inflight:
@@ -2875,6 +3111,20 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
 
     ledger = summarize_solve_ledger(ledger_entries, phase_acc["solve_s"],
                                     pipeline_on, max_inflight)
+    if elastic_stats is not None:
+        # per-device ledger slices: each device's group-entry walls must
+        # account for its busy wall the same way the global entries
+        # account for dispatch_solve_s (the accounted_fraction gate,
+        # extended per device)
+        for dstr, rec in elastic_stats["devices"].items():
+            ent = [e for e in ledger["groups"]
+                   if str(e.get("device")) == dstr]
+            rec["solve_s"] = round(sum(float(e.get("solve_s", 0.0))
+                                       for e in ent), 4)
+            rec["accounted_fraction"] = (
+                round(rec["solve_s"] / rec["busy_s"], 4)
+                if rec["busy_s"] else None)
+        ledger["elastic"] = elastic_stats
     # numerical-trust line items ride the ledger too: per-run certificate
     # counts + certification/shadow wall time next to the device-traffic
     # decomposition they taxed

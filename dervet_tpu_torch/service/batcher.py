@@ -718,8 +718,8 @@ class BatchRound:
             "substituted_windows": int(
                 (led.get("warm_start") or {}).get("substituted", 0)),
         }
-        # elastic-scheduler observables (the JAX package's multi-device
-        # scheduler; a one-device ledger carries no such key): which
+        # elastic-scheduler observables (parallel/elastic.py; a plain
+        # one-device round's ledger carries no such key): which
         # devices this round's groups landed on, how many steals the
         # stragglers cost, and the worst per-device occupancy — the
         # serving-bench gate's raw material

@@ -324,12 +324,13 @@ class BackendRecovery:
         """Tear down and re-initialize the accelerator backend.  Clears
         the solver cache (its preconditioned operators live on the dead
         device), synchronizes the card and empties the CUDA caching
-        allocator, then re-warms the device (``warmup_device``, no
-        solve).  Returns True on success; False counts a consecutive
+        allocator, then re-warms every device the elastic scheduler
+        places groups on (``warmup_devices``, no solve).  Returns True on success; False counts a consecutive
         failure toward the exhausted budget."""
         if solver_cache is not None:
             # solvers + preconditioning hold dead-device buffers: drop
-            # them, and the warm cache rebuilds on re-init
+            # them — including the elastic per-device shards — and the
+            # warm cache rebuilds on re-init
             if hasattr(solver_cache, "clear"):
                 solver_cache.clear()
             else:
@@ -337,18 +338,25 @@ class BackendRecovery:
         try:
             import torch
 
-            from ..device import resolve_device, warmup_device
+            from ..device import resolve_device
+            from ..parallel import elastic
+            from ..parallel.mesh import warmup_devices
             dev = resolve_device(self.device)
-            if dev.type == "cuda":
-                # a sticky fault (illegal address, device-side assert)
-                # raises here: the context is unusable for this process
-                torch.cuda.synchronize(dev)
-                torch.cuda.empty_cache()
-            # inventory-only probe: re-init must be FAST (it repeats up
-            # to max_reinits times against a possibly-dead backend, and
-            # the time to a lost round's answer scales with it); the warm
-            # solve is a service-START cost
-            info = warmup_device(dev, solve=False)
+            devs = elastic.elastic_devices("torch", dev) or [dev]
+            for d in devs:
+                if d.type == "cuda":
+                    # a sticky fault (illegal address, device-side
+                    # assert) raises here: the context is unusable for
+                    # this process
+                    torch.cuda.synchronize(d)
+                    torch.cuda.empty_cache()
+            # inventory-only probe of every device the elastic scheduler
+            # places groups on: re-init must be FAST (it repeats up to
+            # max_reinits times against a possibly-dead backend, and the
+            # time to a lost round's answer scales with it); the warm
+            # solves are a service-START cost, and the first elastic
+            # round after recovery rebuilds its shards anyway
+            info = warmup_devices(per_device_solve=False, devices=devs)
             # the injected device_loss fault also fails the warm-up
             # probe while armed, so N-consecutive-failure drills work
             from ..utils import faultinject

@@ -245,6 +245,11 @@ class ScenarioService:
                         "compile_events": 0, "round_s": 0.0,
                         "preempted": 0, "degraded_rounds": 0,
                         "seeded_windows": 0, "substituted_windows": 0}
+        # elastic-scheduler aggregates (parallel/elastic.py): rounds
+        # that rode the multi-device scheduler, total steals, worst
+        # per-device occupancy seen
+        self._elastic = {"rounds": 0, "steals": 0,
+                         "min_occupancy": None}
         self._requests = {"completed": 0, "failed": 0}
         self.last_round_ledger: Optional[Dict] = None
         self.device_info: Optional[Dict] = None
@@ -598,16 +603,20 @@ class ScenarioService:
         if self._started:
             return self
         if self.backend != "cpu":
-            from ..device import warmup_device
+            from ..parallel import elastic
+            from ..parallel.mesh import warmup_devices
             # the CUDA context, the kernels' nvcc build and one
-            # bucket-shaped warm solve, all on THIS thread, before the
-            # batcher thread launches anything
-            self.device_info = warmup_device(self.device)
+            # bucket-shaped warm solve on every device the elastic
+            # scheduler will place groups on (the service's device alone
+            # without it), before the batcher thread launches anything
+            elastic_devs = elastic.elastic_devices(self.backend, self.device)
+            self.device_info = warmup_devices(
+                devices=elastic_devs or [self.device])
             TellUser.info(
                 f"service: device warm ({self.device_info['n_devices']}x "
                 f"{self.device_info['platform']}:"
                 f"{self.device_info['device_kind']}, "
-                f"warm-up {self.device_info['warmup_s']}s)")
+                f"warm-up {self.device_info['warmup_total_s']}s)")
         self._started = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="dervet-service-batcher")
@@ -983,6 +992,15 @@ class ScenarioService:
             self._rounds["batch_sum"] += float(
                 st.get("mean_batch", 0.0)) * int(st.get("device_groups", 0))
             self._rounds["round_s"] += float(st.get("round_s", 0.0))
+            el = st.get("elastic")
+            if el:
+                self._elastic["rounds"] += 1
+                self._elastic["steals"] += int(el.get("steals", 0))
+                mo = el.get("min_occupancy")
+                if mo is not None:
+                    prev = self._elastic["min_occupancy"]
+                    self._elastic["min_occupancy"] = (
+                        mo if prev is None else min(prev, mo))
         if rnd.ledger is not None:
             self.last_round_ledger = rnd.ledger
         self._telemetry_round(
@@ -1022,6 +1040,10 @@ class ScenarioService:
             int(st.get("windows", 0)))
         reg.counter("dervet_compile_events_total").inc(
             int(st.get("compile_events", 0)))
+        el = st.get("elastic")
+        if el:
+            reg.counter(telemetry_ops.M_STEALS).inc(
+                int(el.get("steals", 0)))
         warm = (ledger or {}).get("warm_start")
         if warm:
             for grade in ("exact", "near", "predicted", "dual_iterate",
@@ -1151,6 +1173,7 @@ class ScenarioService:
             design = dict(self._design)
             portfolio = dict(self._portfolio)
             montecarlo = dict(self._montecarlo)
+            elastic = dict(self._elastic)
         design["screen_s"] = round(design["screen_s"], 3)
         design["screen_candidates_per_s"] = round(
             design["candidates"] / design["screen_s"], 2) \
@@ -1223,6 +1246,11 @@ class ScenarioService:
                         "draining": self._draining.is_set(),
                         "device": self.device_info,
                         "peak_memory_bytes": self._peak_memory()},
+            # multi-device elastic scheduler (parallel/elastic.py):
+            # round/steal counts plus the last round's per-device slice
+            "elastic": {**elastic,
+                        "last_round": (self.last_round_ledger or {}
+                                       ).get("elastic")},
             # self-healing layer: breaker states, shed/degraded counts,
             # backend-loss recovery counters, poison quarantine
             "resilience": {

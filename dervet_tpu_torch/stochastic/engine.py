@@ -151,11 +151,12 @@ def run_montecarlo(case, spec: MCSpec, *, backend: str = "torch",
     all_failed = None
     with certify.policy_override(policy):
         try:
-            # no elastic=False here: this run_dispatch drives one device
-            # and has no multi-device scheduler to turn off
+            # one wide structure group — split the single batch over the
+            # devices rather than handing it to the elastic scheduler
             run_dispatch(scens, backend=backend, solver_opts=opts,
                          solver_cache=caches.tier(spec.screen_tier),
-                         supervisor=supervisor, device=device)
+                         supervisor=supervisor, device=device,
+                         elastic=False)
         except AggregatedSolverError as e:
             all_failed = e
     screen_s = time.perf_counter() - t_screen
@@ -341,7 +342,8 @@ def evaluate_finalist_risk(case, finalists, spec: MCSpec, *,
                          solver_opts=screening_options(solver_opts,
                                                        spec.screen_tier),
                          solver_cache=caches.tier(spec.screen_tier),
-                         supervisor=supervisor, device=device)
+                         supervisor=supervisor, device=device,
+                         elastic=False)
         except AggregatedSolverError as e:
             raise SolverError(
                 f"design risk: every finalist sample failed ({e})") from e

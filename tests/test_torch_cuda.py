@@ -542,3 +542,62 @@ def test_spawned_replica_serves_on_card(cuda, tmp_path):
     finally:
         router.close()
         log.close()
+
+
+@pytest.mark.cuda
+def test_two_elastic_workers_on_card_byte_identical(cuda, monkeypatch):
+    """The elastic scheduler with two workers on cuda:0 (the device seam;
+    each worker on a CUDA stream of its own, slot 1 a straggler) answers
+    bit for bit as one worker does, and steals slot 1's queued group
+    (four months: three groups, of which slot 1 is placed two)."""
+    from dervet_tpu_torch.api import DERVET
+    from dervet_tpu_torch.parallel import elastic
+    from dervet_tpu_torch.utils import faultinject
+
+    def solve():
+        cases = benchlib.synthetic_sensitivity_cases(8, months=4,
+                                                     daily_cycle_limit=1)
+        return DERVET.from_cases(cases).solve(backend="torch")
+
+    monkeypatch.delenv(elastic.ELASTIC_ENV, raising=False)
+    monkeypatch.setenv(elastic.ELASTIC_DEVICES_ENV, "1")
+    one = solve()
+    monkeypatch.delenv(elastic.ELASTIC_DEVICES_ENV)
+    monkeypatch.setattr(elastic, "visible_devices",
+                        lambda device=None: [cuda, cuda])
+    with faultinject.inject(straggler=True, straggler_device=1,
+                            straggler_seconds=10.0):
+        two = solve()
+    el = two.solve_ledger["elastic"]
+    assert el["n_devices"] == 2 and el["n_steals"] >= 1, el
+    assert one.solve_ledger["elastic"]["n_devices"] == 1
+    for k, inst in one.instances.items():
+        a, b = inst.scenario, two.instances[k].scenario
+        assert a.objective_values == b.objective_values
+        for name in a._solution:
+            assert np.array_equal(a._solution[name], b._solution[name])
+    groups = [g for g in two.solve_ledger["groups"]
+              if g.get("backend") == "torch"]
+    assert groups and all(g["kernel"] == fused_chunk.KERNEL_BANDED
+                          and g["kernel_launches"] > 0 for g in groups)
+
+
+@pytest.mark.cuda
+def test_sharded_batch_on_card(cuda):
+    """``solve_batch_sharded`` over [cuda:0, cuda:0] on the main 31-day
+    structure at an odd batch: objectives within 1e-5 of the unsharded
+    card solve, the same converged count, and chunk-kernel launches."""
+    from dervet_tpu_torch.parallel import solve_batch_sharded
+    lp = benchlib.window_lps(benchlib.synthetic_case(
+        daily_cycle_limit=1))[0]
+    solver = pdhg.CompiledLPSolver(
+        lp, pdhg.PDHGOptions(cpu_rescue_after=None), device=cuda)
+    C = price_batch(lp, 33, seed=4)
+    ref = solver.solve(c=C)
+    fused_chunk.reset_launch_counts()
+    res, st = solve_batch_sharded(solver, [cuda, cuda], c=C)
+    assert fused_chunk.LAUNCHES[fused_chunk.KERNEL_BANDED] > 0
+    a, b = res.obj.cpu().numpy(), ref.obj.cpu().numpy()
+    assert np.all(np.abs(a - b) <= 1e-4 + 1e-5 * np.abs(b))
+    assert st.n_converged == int(ref.converged.sum())
+    assert res.x.device == cuda and res.x.shape == (33, lp.n)
