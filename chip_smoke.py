@@ -40,7 +40,13 @@ Phases:
                rows, and the service's warm-up LP at 8); and both kernels
                at the widths phase 13 launches (the three monthly
                structures at its elastic groups' 448, 256 and 64, the
-               weekly structure at a 208-wide shard);
+               weekly structure at a 208-wide shard); and the banded
+               kernel at every width phase 14 launches
+               (``northstar_pairs()``: the bands-only monthly structures
+               at 7,000, 12,000, 4,000 and 1,000 and the ICE + CHP ones
+               at 7,000, 4,000 and 1,000, each with the compaction
+               buckets 8-2,048 below it; the real batches and bucket 8
+               timed);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
@@ -181,7 +187,31 @@ Phases:
                within 2e-3 of HiGHS, and a 5-minute month at world 2 on
                gloo, both ranks on cuda:0, within 5e-4 (objective) and
                5e-3 (x) of the unsharded card solve; the three ranks run
-               at once, beside HiGHS and the unsharded card solves.
+               at once, beside HiGHS and the unsharded card solves;
+ 14. northstar — ``bench.py``'s north-star sweep through the port's own
+               functions: ``benchlib.build_window_lps`` of
+               ``synthetic_case()`` (DA, no daily-cycle rows), one
+               ``CompiledLPSolver`` a window-length group, Q, L and U
+               placed on the card once and repeated 1,000 times, and
+               each pass's prices drawn on the card
+               (``scenario_price_batch_device``, seed + group index):
+               14.1 two passes (seeds 31 and 43) of 7,000 / 4,000 /
+               1,000 instances; 14.2 the twelve months padded into one
+               group of 12,000 (``pad_to_max=True``); 14.3 the ICE + CHP
+               microgrid at 1,000 scenarios.  ``bench.py``'s solver
+               options without the straggler rescue: every answer is the
+               card's.  Every instance converged on the card
+               (``bench.py``'s condition), every group on the banded
+               kernel at pairs phase 2 checked, none solved on the CPU,
+               no host-to-device bytes for the placed inputs; in the
+               first pass of each run, 4 instances a group within 1e-3
+               of HiGHS and 64 each with an accepted float64
+               certificate of the pass's own answer.  The ICE + CHP
+               run's two open faults (``NORTHSTAR_FAULT_*``) are printed
+               and bounded, not passed over.  Prints each pass's wall,
+               each group's batch, m x n, iterations p50/p90/p99/max and
+               launches, the bytes copied, peak device memory and the
+               host seconds of the checks.
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -353,6 +383,68 @@ SHARDS = 2
 PARALLEL_PAIRS = {744: (7 * PARALLEL_CASES, -(-SHARD_BATCHES[744] // SHARDS)),
                   720: (4 * PARALLEL_CASES,), 672: (PARALLEL_CASES,),
                   168: (-(-SHARD_BATCHES[168] // SHARDS),)}
+# phase 14 (northstar): ``bench.py``'s north-star sweep on the port, one
+# CompiledLPSolver a window-length group, the batch the group's windows x
+# the price scenarios: (synthetic_case options, pad_to_max, scenarios,
+# pass seeds).  14.1 Battery + PV + DA in monthly windows (no daily-cycle
+# rows: a bands-only op), two passes as ``bench.py`` times them; 14.2 the
+# twelve months padded into one structure (``BENCH_FUSE=1``); 14.3 the
+# ICE + CHP microgrid (``BENCH_MULTI_DER=1``)
+NORTHSTAR_DEVICE = "cuda:0"
+NORTHSTAR_RUNS = {"14.1 north star": ({}, False, 1000, (31, 43)),
+                  "14.2 fused": ({}, True, 1000, (31,)),
+                  "14.3 microgrid_mc": ({"multi_der": True}, False, 1000,
+                                        (31,))}
+# months of each length in the 2017 year: a group's windows
+NORTHSTAR_MONTHS = {744: 7, 720: 4, 672: 1}
+# the solver options of phase 14: bench.py's, without the straggler
+# rescue (which solves the instances still running past 65,536 iterations
+# with HiGHS on the host, copying the group's whole c, q, l and u there,
+# and marks them converged): every answer the phase holds is the card's
+NORTHSTAR_OPTS = {"cpu_rescue_after": None}
+# instances a group, drawn by a fixed seed in the first pass of each run:
+# the first NORTHSTAR_HIGHS on exact HiGHS (within OBJ_RTOL), all
+# NORTHSTAR_CERTS through the float64 certificate with their duals
+NORTHSTAR_HIGHS, NORTHSTAR_CERTS, NORTHSTAR_SAMPLE_SEED = 4, 64, 14
+# the open faults of the sweep (ROADMAP Queue 3), which both packages'
+# solvers show on the same inputs on the CPU
+# (``scripts/compare_pdhg_tail.py --kind northstar``), on the ICE + CHP
+# case only: its answers violate the CHP heat-recovery balance row by up
+# to a few percent of the row's activity, which the certificate rejects;
+# and its September window (the third 30-day window) runs a long
+# iteration tail, in which some price scenarios do not converge within
+# max_iters.  The phase prints both and fails on a rejection for any
+# other cause, a non-converged instance in any other window, or more
+# than NORTHSTAR_STUCK_MAX of them in that window
+NORTHSTAR_FAULT_RUN = "14.3 microgrid_mc"
+NORTHSTAR_FAULT_ROW = "CHP-1/heat_recovery"
+NORTHSTAR_FAULT_WINDOW = (720, 2)
+NORTHSTAR_STUCK_MAX = 1
+# the widths the kernel grid and the launch take as 32-bit ints
+INT32_MAX = 2 ** 31 - 1
+
+
+def northstar_pairs():
+    """{structure ("bands" or "multi_der"): {T: {batch: timed}}}: the
+    widths phase 14 launches the banded kernel at on each monthly
+    structure — each group's real batch (14.2's twelve months on the
+    31-day structure too) and the buckets those compact to; phase 2 times
+    the real batches and the smallest bucket, where an iteration tail
+    runs."""
+    from dervet_tpu_torch.ops.pdhg import compaction_bucket, compaction_buckets
+    smallest = compaction_bucket(1)
+    out = {}
+    for kw, pad, n_scen, _ in NORTHSTAR_RUNS.values():
+        kind = "multi_der" if kw.get("multi_der") else "bands"
+        groups = ({max(NORTHSTAR_MONTHS): sum(NORTHSTAR_MONTHS.values())}
+                  if pad else NORTHSTAR_MONTHS)
+        for T, windows in groups.items():
+            B = windows * n_scen
+            got = out.setdefault(kind, {}).setdefault(T, {})
+            for b in compaction_buckets(B):
+                got.setdefault(b, b == smallest)
+            got[B] = True
+    return out
 
 
 def log(*a):
@@ -831,18 +923,27 @@ def pair_phase(records):
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    from dervet_tpu_torch import benchlib
     monthly = window_lps("month", 1)
+    days = {744: 31, 720: 30, 672: 28}
+    # (structure, window LP, {batch: timed}, largest seeded batch)
+    banded = [(f"{days[T]}d", monthly[T], dict.fromkeys(
+        GRID_BATCHES + REAL_BATCHES[T] + PARALLEL_PAIRS[T], True),
+        SEEDED_MAX_BATCH) for T in days]
+    northstar = northstar_pairs()
+    for kind, kw in (("bands", {}), ("multi_der", {"multi_der": True})):
+        _, groups = benchlib.build_window_lps(benchlib.synthetic_case(**kw))
+        banded += [(f"northstar {kind} {days[T]}d", groups[T][0],
+                    northstar[kind][T], 0) for T in days]
     pairs, failures = {}, []
     rec = records[fc.KERNEL_BANDED]
-    for T, days in ((744, 31), (720, 30), (672, 28)):
-        lp = monthly[T]
+    for structure, lp, batches, seeded_max in banded:
         solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
         check(fc.kernel_for(solver.op) == fc.KERNEL_BANDED,
-              f"{days}-day window is not banded")
-        for B in dict.fromkeys(GRID_BATCHES + REAL_BATCHES[T]
-                               + PARALLEL_PAIRS[T]):
+              f"{structure} window is not banded")
+        for B, timed in sorted(batches.items()):
             starts = [("mid-solve", chunk_inputs(solver, B, seed=B))]
-            if B <= SEEDED_MAX_BATCH:
+            if B <= seeded_max:
                 starts.append(("seeded", seeded_inputs(solver, B, B + 1)))
             worst = 0.0
             for start, inputs in starts:
@@ -857,11 +958,21 @@ def pair_phase(records):
                     finite = all(torch.isfinite(a).all().item()
                                  for a in kern)
                     if not finite or rel_err > KERNEL_RTOL:
-                        failures.append(f"{days}d B={B} {start} {variant}: "
-                                        f"rel {rel_err:.3e}")
+                        failures.append(f"{structure} B={B} {start} "
+                                        f"{variant}: rel {rel_err:.3e}")
                     worst = max(worst, rel_err)
                     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
                     rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
+            pair = {"structure": structure, "op": solver.op,
+                    "seeded": B <= seeded_max, "grid": B in GRID_BATCHES,
+                    "solver": solver}
+            pairs[(lp.m, lp.n, B)] = pair
+            checked = (f"[pairs] {structure} {lp.m}x{lp.n} B={B}: "
+                       f"{' + '.join(st for st, _ in starts)} x "
+                       f"{len(fc.VARIANTS)} variants max_rel={worst:.3e}")
+            if not timed:
+                log(checked)
+                continue
             inputs = starts[0][1]
             launch = chunk_launcher(solver, inputs, fc.REFLECTED)
             ms, timer = device_ms(launch, 10, fc.KERNEL_BANDED), "device"
@@ -873,16 +984,15 @@ def pair_phase(records):
                 solver, inputs, fc.REFLECTED, ALPHA[fc.REFLECTED],
                 torch.float32), 2)
             need = bound(solver.op, B, lp.m, lp.n, fc.REFLECTED, needed=True)
-            log(f"[pairs] {days}d {lp.m}x{lp.n} B={B}: "
-                f"{' + '.join(st for st, _ in starts)} x {len(fc.VARIANTS)} "
-                f"variants max_rel={worst:.3e}; kernel {ms:.4f} ms ({timer}), "
-                f"plain {plain_ms:.4f} ms, bound {need[0]:.4f} ms by "
-                f"{need[1]}")
-            pairs[(lp.m, lp.n, B)] = {
-                "structure": f"{days}d", "op": solver.op, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": need[0], "timer": timer,
-                "seeded": B <= SEEDED_MAX_BATCH,
-                "grid": B in GRID_BATCHES, "solver": solver}
+            log(f"{checked}; kernel {ms:.4f} ms ({timer}), plain "
+                f"{plain_ms:.4f} ms, bound {need[0]:.4f} ms by {need[1]}")
+            pair.update(ms=ms, plain_ms=plain_ms, bound_ms=need[0],
+                        bound_by=need[1], timer=timer)
+            if structure.startswith("northstar"):
+                rec.setdefault("northstar_pairs", []).append({
+                    "structure": structure, "m": lp.m, "n": lp.n, "B": B,
+                    "ms": ms, "timer": timer, "plain_ms": plain_ms,
+                    "bound_ms": need[0], "bound_by": need[1]})
     from dervet_tpu_torch.device import _warmup_lp
     weekly = window_lps(168, 0)
     dense = [(f"weekly {T}h", weekly[T],
@@ -3171,6 +3281,254 @@ def parallel_phase(records, checked, pairs, main_res):
     check(tm.y.shape == (month.m,), f"time-sharded month: y {tm.y.shape}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the north-star price-scenario sweep (bench.py's workload)
+# ---------------------------------------------------------------------------
+
+def northstar_jobs(kw, pad, n_scen, card):
+    """``bench.py``'s preparation on the port: the case's window LPs by
+    length group (``build_window_lps``), one solver a group, each group's
+    base costs stacked on the card and its Q, L and U placed there once,
+    every window's repeated ``n_scen`` times (window-major)."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    t0 = time.perf_counter()
+    _, groups = benchlib.build_window_lps(benchlib.synthetic_case(**kw),
+                                          pad_to_max=pad)
+    t_build = time.perf_counter() - t0
+    jobs = []
+    for T, lps in sorted(groups.items()):
+        t0 = time.perf_counter()
+        solver = CompiledLPSolver(lps[0], PDHGOptions(**NORTHSTAR_OPTS),
+                                  device=card)
+
+        def placed(name):
+            return torch.as_tensor(np.stack([getattr(lp, name) for lp in lps]),
+                                   dtype=torch.float32, device=card)
+        job = {"T": T, "lps": lps, "solver": solver,
+               "c_stack": placed("c"),
+               **{k: placed(k).repeat_interleave(n_scen, dim=0)
+                  for k in ("q", "l", "u")}}
+        B, m, n = len(lps) * n_scen, lps[0].m, lps[0].n
+        # the launch passes B, m and n as 32-bit ints, and the grid has
+        # one block an instance (whose offsets into the (B, n) state are
+        # 64-bit); a (B, n) tensor of more than 2^31 - 1 entries is not
+        # a shape any check of phase 2 took
+        check(B * max(m, n) <= INT32_MAX,
+              f"northstar T={T}: B x max(m, n) = {B * max(m, n)} beyond "
+              "32 bits")
+        op = solver.op
+        log(f"[northstar]   group T={T}: {len(lps)} windows x {n_scen} "
+            f"scenarios -> batch {B}, m x n = {m} x {n}, n_eq {lps[0].n_eq}, "
+            f"{type(op).__name__} nb={len(getattr(op, 'offsets', ()))} "
+            f"wide pair {getattr(op, 'wide_w', None) is not None}, solver "
+            f"built in {time.perf_counter() - t0:.2f} s "
+            f"({json.dumps(solver.precondition_breakdown)})")
+        jobs.append(job)
+    return jobs, t_build
+
+
+def northstar_pass(jobs, n_scen, seed):
+    """One pass of ``bench.py``'s timed loop: each group's price sweep
+    drawn on the card (``scenario_price_batch_device`` with seed + group
+    index) and solved with Q, L and U as placed.  Returns [(C, result,
+    stats)] a group, and the pass's wall seconds."""
+    import torch
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops.pdhg import SolveStats
+    t0 = time.perf_counter()
+    out = []
+    for gi, job in enumerate(jobs):
+        C = benchlib.scenario_price_batch_device(job["c_stack"], n_scen,
+                                                 seed + gi)
+        st = SolveStats()
+        res = job["solver"].solve(c=C, q=job["q"], l=job["l"], u=job["u"],
+                                  stats=st)
+        out.append((C, res, st))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fault_only(cert):
+    """A rejection for the recorded open fault alone: the primal violation
+    is worst on the CHP heat-recovery row, and the objective, the dual
+    residual and the duality gap each pass the certificate's loose band."""
+    from dervet_tpu_torch.ops import certify
+    pol = certify.policy_from_env()
+    dual_ok = pol.eps_dual * pol.loose_factor
+    return (cert.worst_group == NORTHSTAR_FAULT_ROW
+            and cert.obj_rel_err <= pol.eps_obj * pol.loose_factor
+            and (cert.dual_rel_viol or 0.0) <= dual_ok
+            and (cert.gap_rel or 0.0) <= dual_ok)
+
+
+def northstar_samples(job, n_scen, C, res, gi, what, fault):
+    """The first pass's exactness checks of one group, on instances drawn
+    by a fixed seed and on the pass's own answers: NORTHSTAR_HIGHS of them
+    against exact HiGHS (within OBJ_RTOL), all NORTHSTAR_CERTS through the
+    float64 certificate with their duals, each accepted — or, in the run
+    with the recorded open fault (``fault``), rejected for that fault
+    alone (``fault_only``).  Returns the seconds on HiGHS and on
+    certificates, and the rejected count."""
+    import collections
+    import dataclasses
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.ops import certify, cpu_ref
+    B = C.shape[0]
+    rng = np.random.default_rng(NORTHSTAR_SAMPLE_SEED + gi)
+    idx = np.sort(rng.choice(B, min(B, NORTHSTAR_CERTS), replace=False))
+    sel = torch.as_tensor(idx, device=C.device)
+    c_h = C[sel].double().cpu().numpy()
+    x_h, y_h = res.x[sel].cpu().numpy(), res.y[sel].cpu().numpy()
+    obj_h = res.obj[sel].cpu().numpy()
+
+    def lp_of(j):
+        return dataclasses.replace(job["lps"][idx[j] // n_scen], c=c_h[j])
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    for j in rng.choice(len(idx), NORTHSTAR_HIGHS, replace=False):
+        hi = cpu_ref.solve_lp_cpu(lp_of(j))
+        check(hi.status == 0, f"{what}: HiGHS status {hi.status} on "
+                              f"instance {idx[j]}")
+        worst = max(worst, abs(float(obj_h[j]) - hi.obj)
+                    / max(1.0, abs(hi.obj)))
+    t_highs = time.perf_counter() - t0
+    log(f"[northstar]   {what}: {NORTHSTAR_HIGHS} instances on HiGHS in "
+        f"{t_highs:.2f} s, max objective rel {worst:.3e} (limit {OBJ_RTOL})")
+    check(worst < OBJ_RTOL, f"{what}: objective rel {worst:.3e} vs HiGHS")
+
+    t0 = time.perf_counter()
+    certs = [certify.certify_solution(lp_of(j), x_h[j], float(obj_h[j]),
+                                      y=y_h[j])
+             for j in range(len(idx))]
+    t_cert = time.perf_counter() - t0
+    rejected = [(idx[j], c) for j, c in enumerate(certs) if not c.accepted]
+    verdicts = dict(collections.Counter(c.verdict for c in certs))
+    row = [c.rel_viol[c.worst_class] for _, c in rejected]
+    log(f"[northstar]   {what}: {len(idx)} float64 certificates in "
+        f"{t_cert:.3f} s ({1e3 * t_cert / len(idx):.2f} ms a certificate): "
+        f"{verdicts}" + (f"; rejected on the {NORTHSTAR_FAULT_ROW} row "
+                         f"{min(row):.2e}-{max(row):.2e} of its activity"
+                         if rejected and fault else ""))
+    for i, cert in rejected:
+        check(fault and fault_only(cert),
+              f"{what}: instance {i} rejected by the certificate: "
+              f"{cert.reason}")
+    return t_highs, t_cert, len(rejected)
+
+
+def check_stuck(job, res, conv, n_scen, fault, what):
+    """Every instance converged on the card — except, in the run with the
+    recorded open fault, at most NORTHSTAR_STUCK_MAX in its September
+    window, each printed with its status and residuals."""
+    import numpy as np
+    stuck = np.nonzero(~conv)[0]
+    if not stuck.size:
+        return
+    status = res.status.cpu().numpy()
+    pr, gap = res.prim_res.cpu().numpy(), res.gap.cpu().numpy()
+    it = res.iters.cpu().numpy()
+    for i in stuck:
+        log(f"[northstar]   {what}: instance {i} (window {i // n_scen}) not "
+            f"converged: status {status[i]}, {it[i]} iterations, primal "
+            f"residual {pr[i]:.3e}, gap {gap[i]:.3e}")
+    windows = set((job["T"], int(i) // n_scen) for i in stuck)
+    check(fault and windows == {NORTHSTAR_FAULT_WINDOW}
+          and stuck.size <= NORTHSTAR_STUCK_MAX,
+          f"{what}: {stuck.size} instances did not converge on the card "
+          f"(windows {sorted(windows)})")
+
+
+def northstar_phase(records, pairs):
+    """Phase 14: ``bench.py:60-185`` on the port (14.1 the north star, two
+    passes; 14.2 the twelve months padded into one group; 14.3 the ICE +
+    CHP microgrid), at ``bench.py``'s solver options without the straggler
+    rescue (``NORTHSTAR_OPTS``).  Gates: every instance converged on the
+    card, none solved on the CPU, every group launched the banded kernel
+    at (m, n, batch) pairs phase 2 checked, no host-to-device bytes for
+    the placed C, Q, L and U, and the first pass's samples on HiGHS and
+    certified; in 14.3 the recorded open faults (``NORTHSTAR_FAULT_*``)
+    are printed and bounded."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    card = torch.device(NORTHSTAR_DEVICE)
+    total = 0
+    for name, (kw, pad, n_scen, seeds) in NORTHSTAR_RUNS.items():
+        fault = name == NORTHSTAR_FAULT_RUN
+        t_run = time.perf_counter()
+        jobs, t_build = northstar_jobs(kw, pad, n_scen, card)
+        log(f"[northstar] {name}: synthetic_case({kw}) pad_to_max={pad}, "
+            f"{sum(len(j['lps']) for j in jobs)} windows in {len(jobs)} "
+            f"length groups, assembled in {t_build:.2f} s")
+        for p, seed in enumerate(seeds):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fc.reset_launch_counts()
+            with launch_widths() as seen:
+                out, wall = northstar_pass(jobs, n_scen, seed)
+            launches = dict(fc.LAUNCHES)
+            what = f"{name} pass {p + 1} (seed {seed})"
+            check_launch_widths(seen, pairs, f"northstar {what}")
+            total += launches[fc.KERNEL_BANDED]
+            n_conv = n_all = 0
+            for job, (C, res, st) in zip(jobs, out):
+                it = res.iters.cpu().numpy()
+                conv = res.converged.cpu().numpy()
+                n_conv, n_all = n_conv + int(conv.sum()), n_all + conv.size
+                p50, p90, p99 = np.percentile(it, (50, 90, 99))
+                by_window = np.median(it.reshape(len(job["lps"]), n_scen),
+                                      axis=1)
+                lp = job["lps"][0]
+                log(f"[northstar]   {what} group T={job['T']}: batch "
+                    f"{it.size}, {lp.m} x {lp.n}, iterations p50/p90/p99/"
+                    f"max {p50:.0f}/{p90:.0f}/{p99:.0f}/{it.max()} (p50 "
+                    f"by window {by_window.astype(int).tolist()}), "
+                    f"converged {int(conv.sum())}, banded launches "
+                    f"{st.kernel_launches}; {json.dumps(st.as_dict())}")
+                check_stuck(job, res, conv, n_scen, fault,
+                            f"northstar {what} T={job['T']}")
+                check(st.cpu_rescued == 0,
+                      f"northstar {what} T={job['T']}: {st.cpu_rescued} "
+                      "instances solved on the CPU")
+                check(st.kernel_launches > 0,
+                      f"northstar {what} T={job['T']}: no banded launch")
+                check(st.h2d_bytes == 0 and st.h2d_transfers == 0,
+                      f"northstar {what}: {st.h2d_bytes} bytes of C, Q, L "
+                      "and U copied to the card")
+            peak = torch.cuda.max_memory_allocated()
+            samples = ""
+            if p == 0:
+                t_hi = t_cert = 0.0
+                n_rej = 0
+                for gi, (job, (C, res, st)) in enumerate(zip(jobs, out)):
+                    th, tc, nr = northstar_samples(
+                        job, n_scen, C, res, gi, f"{what} T={job['T']}",
+                        fault)
+                    t_hi, t_cert, n_rej = t_hi + th, t_cert + tc, n_rej + nr
+                samples = (f"; apart from the solve: HiGHS {t_hi:.2f} s, "
+                           f"certificates {t_cert:.2f} s; "
+                           f"{n_rej}/{NORTHSTAR_CERTS * len(jobs)} sampled "
+                           "answers rejected")
+            log(f"[northstar] {what}: wall {wall:.3f} s on the card, "
+                f"{n_conv}/{n_all} converged, banded launches "
+                f"{launches[fc.KERNEL_BANDED]}, h2d_bytes "
+                f"{sum(st.h2d_bytes for _, _, st in out)}, peak device "
+                f"memory {peak / 2 ** 30:.3f} GiB{samples}")
+            del out
+        del jobs
+        torch.cuda.empty_cache()
+        log(f"[northstar] {name}: {time.perf_counter() - t_run:.1f} s with "
+            "assembly and the checks")
+    records[fc.KERNEL_BANDED].setdefault("launches_by_run", {})[
+        "northstar"] = total
+    check(total > 0, "northstar: the banded kernel never launched")
+
+
 def timed_in_thread(fn):
     """Start ``fn`` on a thread of its own; the returned ``join()`` gives
     ``(its result, its wall seconds)`` or raises its error."""
@@ -3270,6 +3628,10 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_phase(records, checked, pairs, main_res)
     log(f"[parallel] done in {time.perf_counter() - t0:.1f} s")
+    del main_res
+    t0 = time.perf_counter()
+    northstar_phase(records, pairs)
+    log(f"[northstar] done in {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     card = card_line()
     print(card)

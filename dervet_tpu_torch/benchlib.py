@@ -10,10 +10,15 @@ per-day cycle rows (``daily_cycle_limit``, the low-rank wide-row pair of
 a real monthly window), a retail time-of-use tariff with demand charges
 (``retail``), and the Reliability stream on a critical load with a
 load-shed curve (``reliability``).
+
+The north-star price sweep (a year of monthly windows x N lognormal
+price scenarios, batched per window-length group) is built from
+:func:`build_window_lps` and drawn by :func:`scenario_price_batch` (host)
+or :func:`scenario_price_batch_device` (on the cost matrix's own device).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import pandas as pd
@@ -178,6 +183,28 @@ def synthetic_sensitivity_cases(n_cases: int, year: int = 2017,
     return out
 
 
+def widen_sensitivity_csv(src, out_path, n_cases: int,
+                          lo: float = 0.8, hi: float = 1.6):
+    """Rewrite a model-parameters CSV so the Battery's ``ene_max_rated``
+    fans out to ``n_cases`` Sensitivity-Parameters values spanning
+    [lo, hi] x the stock rating.  Returns ``out_path``."""
+    df = pd.read_csv(src)
+    sel = (df.Tag == "Battery") & (df.Key == "ene_max_rated")
+    # older inputs name the value column 'Value'
+    val_col = "Optimization Value" if "Optimization Value" in df.columns \
+        else "Value"
+    base = float(df.loc[sel, val_col].iloc[0])
+    vals = np.linspace(lo, hi, n_cases) * base
+    # the column is all-NaN float64 in a stock input; make it object
+    # before writing a list string into it
+    df["Sensitivity Parameters"] = df["Sensitivity Parameters"].astype(object)
+    df.loc[sel, "Sensitivity Parameters"] = \
+        "[" + ", ".join(f"{v:.1f}" for v in vals) + "]"
+    df.loc[sel, "Sensitivity Analysis"] = "yes"
+    df.to_csv(out_path, index=False)
+    return out_path
+
+
 def window_lps(case):
     """Every window LP of ``case``, in order, as a run assembles them
     (the CPU backend's preparation)."""
@@ -187,6 +214,139 @@ def window_lps(case):
     return [scen.build_window_lp(ctx, scen._annuity_scalar,
                                  scen._requirements)
             for ctx in scen.windows]
+
+
+def build_window_lps(case: CaseParams, pad_to_max: bool = False
+                     ) -> Tuple["MicrogridScenario", Dict[int, List]]:
+    """Every window LP of ``case`` (prepared as :func:`window_lps`
+    prepares them), grouped by window length: ``(scenario, {T: [LP,
+    ...]})``.
+
+    ``pad_to_max=True`` extends every shorter window with inert steps up
+    to the longest window's length, so that all windows share one
+    constraint structure and the 28/30/31-day groups collapse into one
+    batched solve.  The padding is exact only when padded steps are
+    truly inert: no self-discharge (the tail SOE pin needs ene[t+1] ==
+    ene[t]), no fixed O&M or house power (constants that scale with the
+    window's length), no EV sessions and no calendar-month-keyed streams
+    (their structure would differ across the padded boundary).  Those
+    raise ``ValueError``."""
+    import dataclasses
+    from .scenario.scenario import MicrogridScenario
+
+    scen = MicrogridScenario(case)
+    windows = scen.windows
+    real_T = {ctx.label: ctx.T for ctx in windows}
+    if pad_to_max:
+        for d in scen.ders:
+            bad = [a for a in ("sdr", "hp", "fixed_om_per_kw", "fixed_om")
+                   if getattr(d, a, 0)]
+            if bad or d.tag.startswith("ElectricVehicle"):
+                raise ValueError(
+                    f"pad_to_max: {d.name} has {bad or 'EV sessions'} — "
+                    "padded steps would not be inert")
+        cal_keyed = {"DCM", "retailTimeShift"} & set(scen.streams)
+        if cal_keyed:
+            raise ValueError(f"pad_to_max: {sorted(cal_keyed)} key their "
+                             "structure by calendar month — padding would "
+                             "diverge across the boundary")
+        T_max = max(ctx.T for ctx in windows)
+        freq = pd.Timedelta(hours=scen.dt)
+
+        def pad(ctx):
+            extra = T_max - ctx.T
+            if extra <= 0:
+                return ctx
+            ext = pd.date_range(ctx.index[-1] + freq, periods=extra,
+                                freq=freq)
+            ts = pd.concat([ctx.ts,
+                            pd.DataFrame(0.0, index=ext,
+                                         columns=ctx.ts.columns)])
+            return dataclasses.replace(ctx, index=ts.index, ts=ts)
+
+        windows = [pad(ctx) for ctx in windows]
+    scen.prepare_dispatch("cpu")
+    groups: Dict[int, List] = {}
+    for ctx in windows:
+        lp = scen.build_window_lp(ctx, scen._annuity_scalar,
+                                  scen._requirements)
+        start = real_T[ctx.label]
+        if ctx.T > start:
+            # padded steps must be inert: every dispatch variable pins to
+            # zero there (otherwise the window-exit SOE pin moves past the
+            # real month and the battery refills for free at the padded
+            # zero price).  SOE stays free: with dispatch zeroed it is
+            # constant through the tail
+            for name, ref in lp.var_refs.items():
+                if ref.size == ctx.T and not name.endswith("/ene"):
+                    lp.l[ref.sl][start:] = 0.0
+                    lp.u[ref.sl][start:] = 0.0
+            # the tail SOE is determined (dispatch zeroed, exit pin at the
+            # window target); pinning its bounds removes the cost-free
+            # floating block that otherwise stalls PDHG's duals
+            for der in scen.ders:
+                target = getattr(der, "ene_target", None)
+                if target is None:
+                    continue
+                name = der.vname("ene")
+                if name in lp.var_refs:
+                    sl = lp.var_refs[name].sl
+                    lp.l[sl][start:] = target
+                    lp.u[sl][start:] = target
+        groups.setdefault(ctx.T, []).append(lp)
+    if pad_to_max:
+        (lps,) = groups.values()
+        keys = {MicrogridScenario._structure_key(lp) for lp in lps}
+        if len(keys) != 1:
+            raise ValueError("pad_to_max: padded windows did not collapse "
+                             "to one constraint structure")
+    return scen, groups
+
+
+# the sweep's lognormal price noise: log-multipliers ~ N(0, PRICE_SIGMA^2)
+PRICE_SIGMA = 0.15
+
+
+def scenario_price_batch(lp, n_scenarios: int, seed: int = 0) -> np.ndarray:
+    """(n_scenarios, n) per-scenario cost vectors: every non-zero cost
+    coefficient (the hourly price terms on charge, discharge and
+    generation) gets its own lognormal noise, so each scenario is a
+    different LP with a different optimal dispatch (a single global
+    multiplier would leave the argmin unchanged)."""
+    rng = np.random.default_rng(seed)
+    mult = rng.lognormal(mean=0.0, sigma=PRICE_SIGMA,
+                         size=(n_scenarios, lp.n))
+    return np.where(lp.c[None, :] != 0.0, mult * lp.c[None, :], 0.0)
+
+
+def _window_seed(seed: int, window: int) -> int:
+    """The 63-bit seed of window ``window``'s stream under ``seed``: each
+    window of a group draws from a stream of its own."""
+    state = np.random.SeedSequence([int(seed), int(window)]).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def scenario_price_batch_device(c_stack, n_scenarios: int, seed: int = 0):
+    """The price sweep of :func:`scenario_price_batch`'s distribution for a
+    whole window group, drawn on ``c_stack``'s own device: ``c_stack`` is
+    an (n_windows, n) tensor of base costs, the result the
+    (n_windows * n_scenarios, n) tensor of draws, window-major.  Window
+    ``i`` draws from a ``torch.Generator`` of its own, seeded by
+    :func:`_window_seed` (seed, i); zero costs stay zero.  The cost matrix
+    never visits the host: only the seeds cross."""
+    import torch
+    w, n = c_stack.shape
+    z = torch.empty((w, n_scenarios, n), dtype=c_stack.dtype,
+                    device=c_stack.device)
+    for i in range(w):
+        gen = torch.Generator(device=c_stack.device)
+        gen.manual_seed(_window_seed(seed, i))
+        z[i].normal_(generator=gen)
+    c = c_stack[:, None, :]
+    out = torch.where(c != 0.0, torch.exp(PRICE_SIGMA * z) * c,
+                      torch.zeros((), dtype=c.dtype, device=c.device))
+    return out.reshape(w * n_scenarios, n)
 
 
 def multi_der_window_lp(seed: int = 0):
@@ -300,3 +460,47 @@ def validate_solve_ledger(ledger: Dict) -> Dict:
             if k not in core:
                 raise ValueError(f"solve_ledger.solver_core missing {k!r}")
     return ledger
+
+
+def validate_telemetry_section(snap: Dict) -> Dict:
+    """Schema-check a telemetry registry snapshot
+    (``MetricsRegistry.snapshot()``) before it is published: the fixed
+    histogram layout (the cross-replica merge contract), internally
+    consistent bucket counts, and numeric counter and gauge values.
+    Raises ``ValueError`` naming the violation; returns the snapshot
+    unchanged so callers can chain it."""
+    from .telemetry import registry as _registry
+    if not isinstance(snap, dict):
+        raise ValueError(f"telemetry section must be a dict, "
+                         f"got {type(snap)}")
+    for k in ("counters", "gauges", "histograms", "hist_bounds", "t"):
+        if k not in snap:
+            raise ValueError(f"telemetry section missing {k!r}")
+    if int(snap["hist_bounds"]) != len(_registry.HIST_BOUNDS):
+        raise ValueError(
+            f"telemetry hist_bounds {snap['hist_bounds']} != the fixed "
+            f"layout's {len(_registry.HIST_BOUNDS)} — merges across "
+            "replicas would be wrong")
+    for name, v in snap["counters"].items():
+        if not isinstance(v, (int, float)) or v < 0:
+            raise ValueError(f"telemetry counter {name!r} not a "
+                             f"non-negative number: {v!r}")
+    for name, v in snap["gauges"].items():
+        if not isinstance(v, (int, float)):
+            raise ValueError(f"telemetry gauge {name!r} not numeric: "
+                             f"{v!r}")
+    for name, h in snap["histograms"].items():
+        for k in ("count", "sum", "buckets", "overflow"):
+            if k not in h:
+                raise ValueError(f"telemetry histogram {name!r} "
+                                 f"missing {k!r}")
+        if len(h["buckets"]) != len(_registry.HIST_BOUNDS):
+            raise ValueError(
+                f"telemetry histogram {name!r} has {len(h['buckets'])} "
+                f"buckets, expected {len(_registry.HIST_BOUNDS)}")
+        if sum(h["buckets"]) + h["overflow"] != h["count"]:
+            raise ValueError(
+                f"telemetry histogram {name!r} bucket counts "
+                f"({sum(h['buckets'])} + {h['overflow']} overflow) do "
+                f"not sum to count {h['count']}")
+    return snap

@@ -597,6 +597,25 @@ class SolveStats:
         return d
 
 
+def compaction_bucket(n_active: int) -> int:
+    """The active-set compaction grid {8, 32, 128, 512, ...}: the
+    smallest bucket that holds ``n_active`` instances."""
+    b = 8
+    while b < n_active:
+        b <<= 2
+    return b
+
+
+def compaction_buckets(B: int) -> tuple:
+    """Every bucket a solve of ``B`` instances can compact its active set
+    to: the grid's buckets of at most half the batch."""
+    out, b = [], 8
+    while b <= B // 2:
+        out.append(b)
+        b <<= 2
+    return tuple(out)
+
+
 def to_host(t) -> np.ndarray:
     """A tensor (any device) or array as numpy."""
     if isinstance(t, torch.Tensor):
@@ -1333,9 +1352,7 @@ class CompiledLPSolver:
                     if n_distinct <= min(self.opts.cpu_rescue_max,
                                          max(1, B // 8)):
                         break     # hand the straggler minority to the CPU
-                bucket = 8
-                while bucket < n_active:
-                    bucket <<= 2
+                bucket = compaction_bucket(n_active)
                 if bucket <= len(idx) // 2:
                     sel = np.nonzero(to_host(act_t))[0]
                     pad = np.resize(sel, bucket)  # pad by repeating survivors
@@ -1398,6 +1415,13 @@ class CompiledLPSolver:
         s.converged[ii] = True
         s.iters_at_conv[ii] = s.total[ii]
         return s
+
+
+def solve_lp(lp: LP, opts: Optional[PDHGOptions] = None,
+             device=None) -> PDHGResult:
+    """Solve one LP on ``device`` (``None`` -> ``cuda:0``; pass ``"cpu"``
+    explicitly)."""
+    return CompiledLPSolver(lp, opts, device=device).solve()
 
 
 def diagnose_infeasibility(lp: LP, y) -> str:

@@ -1170,12 +1170,8 @@ def batch_bucket(n: int) -> int:
     compaction uses ({8, 32, 128, 512, ...}), so a serving layer that pads
     its coalesced groups UP to the next bucket runs a handful of batch
     shapes.  n <= 1 stays unpadded."""
-    if n <= 1:
-        return n
-    b = 8
-    while b < n:
-        b <<= 2
-    return b
+    from ..ops.pdhg import compaction_bucket
+    return n if n <= 1 else compaction_bucket(n)
 
 
 def _batch_pad_to(cache, n: int, multi_dev: bool = False

@@ -23,7 +23,8 @@ solver's ``eps_rel`` and iteration counts within one check window; a small
 finalists and pinned samples, and the Monte-Carlo replay is byte-identical;
 the scenario service warms the card at start and serves two coalesced
 requests in one round on the banded kernel; a spawned fleet replica
-serves a request on cuda:0.
+serves a request on cuda:0; the price sweep draws on the card, and a
+solve whose C, Q, L and U already lie there copies no bytes to it.
 """
 import numpy as np
 import pytest
@@ -601,3 +602,37 @@ def test_sharded_batch_on_card(cuda):
     assert np.all(np.abs(a - b) <= 1e-4 + 1e-5 * np.abs(b))
     assert st.n_converged == int(ref.converged.sum())
     assert res.x.device == cuda and res.x.shape == (33, lp.n)
+
+
+@pytest.mark.cuda
+def test_price_draw_stays_on_card(cuda):
+    """``scenario_price_batch_device`` draws on the cost matrix's own
+    device: the result lies on the card, window-major, zero where the
+    base cost is zero, and the same for the same seed."""
+    _, groups = benchlib.build_window_lps(benchlib.synthetic_case())
+    c = torch.as_tensor(np.stack([lp.c for lp in groups[744][:3]]),
+                        dtype=torch.float32, device=cuda)
+    out = benchlib.scenario_price_batch_device(c, 16, seed=31)
+    assert out.device == cuda and out.shape == (48, c.shape[1])
+    zero = (c == 0).repeat_interleave(16, dim=0)
+    assert torch.equal(out == 0, zero)
+    assert torch.equal(out, benchlib.scenario_price_batch_device(c, 16, 31))
+
+
+@pytest.mark.cuda
+def test_device_resident_batch_moves_no_bytes(cuda):
+    """A solve of the 31-day bands-only window with C drawn on the card
+    and Q, L, U placed there records no host-to-device bytes, converges
+    and launches the banded kernel."""
+    _, groups = benchlib.build_window_lps(benchlib.synthetic_case())
+    lp = groups[744][0]
+    solver = pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(), device=cuda)
+    c = torch.as_tensor(lp.c[None], dtype=torch.float32, device=cuda)
+    C = benchlib.scenario_price_batch_device(c, 40, seed=3)
+    Q, L, U = (torch.as_tensor(np.tile(a, (40, 1)), dtype=torch.float32,
+                               device=cuda) for a in (lp.q, lp.l, lp.u))
+    st = pdhg.SolveStats()
+    res = solver.solve(c=C, q=Q, l=L, u=U, stats=st)
+    assert st.h2d_bytes == 0 and st.h2d_transfers == 0
+    assert st.kernel_launches > 0 and bool(res.converged.all())
+    assert res.x.device == cuda
