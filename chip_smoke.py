@@ -172,7 +172,9 @@ Phases:
                workers on cuda:0 (``elastic.visible_devices`` replaced
                by ``[cuda:0, cuda:0]``, each worker on a CUDA stream of
                its own) and slot 1 a straggler
-               (``DERVET_TPU_FAULT_STRAGGLER``): at least one steal, every
+               (``DERVET_TPU_FAULT_STRAGGLER``, under which the round's
+               groups are all placed before the workers start): at least
+               one steal, every
                case bit-equal to the one-worker run, each slot's groups,
                windows and occupancy logged; every launch of both runs at
                a (structure, batch) pair phase 2 checked;
@@ -208,10 +210,30 @@ Phases:
                of HiGHS and 64 each with an accepted float64
                certificate of the pass's own answer.  The ICE + CHP
                run's two open faults (``NORTHSTAR_FAULT_*``) are printed
-               and bounded, not passed over.  Prints each pass's wall,
-               each group's batch, m x n, iterations p50/p90/p99/max and
-               launches, the bytes copied, peak device memory and the
-               host seconds of the checks.
+               and bounded, not passed over.  Each pass also runs first
+               on the eager window loop (``eager_solve``), whose answers
+               the graph pass must equal bit for bit.  Prints each
+               pass's wall, each group's batch, m x n, iterations
+               p50/p90/p99/max and launches, the bytes copied, peak
+               device memory allocated and reserved on both loops and
+               the host seconds of the checks;
+ 15. graphs  — run right after phase 2: the compiled chunk program (each
+               check window a replay of a captured CUDA graph) against
+               the eager window loop (``_Solver.run_chunk``) on the card,
+               bit for bit (every state field, then the finalized status,
+               iterations, restarts and objective) with equal kernel
+               launches once the warm-ups before the captures are set
+               apart, over the first 4,096-iteration chunk of: phase 3's
+               776 x 2976 group at B = 896 (banded, register
+               configuration, wide pair), phase 7's first retail group
+               (dense), 14.3's September window at 1,000 scenarios and
+               then compacted to bucket 8 (the next chunk), and phase
+               13's 5-minute month at one instance (the plain chunk);
+               each chunk eager, graph-driven with its captures, and
+               graph-driven again on replays alone, timed.
+Every phase prints its check windows, graph replays, captures, capture
+seconds, status reads and their wait beside its wall
+(``pdhg.DRIVER_COUNTS``; the fleet's from its replicas' ledgers).
 
 It exits non-zero on any failure, and without a result when no GPU is
 visible or when the package is missing.  The last two lines are the
@@ -262,9 +284,10 @@ MAIN_CASES = 128
 WEEKLY_CASES = 8
 OBJ_RTOL = 1e-3
 # phases 6 and 7: their synthetic_sensitivity_cases options and case counts
-# (retail at 32 cases, not 64, so the whole smoke with phases 8 and 9
-# stays well inside its time limit: its groups' iteration tail runs to
-# the 400,000 limit and took ~460 s at 64 on the H100)
+# (retail at 32 cases, not 64, so the whole smoke stays well inside its
+# time limit: its groups' iteration tail runs to the 400,000 limit; at 64
+# cases, with the check windows as CUDA-graph replays, the smoke took
+# 876-1,079 s on the H100)
 RUNS = {"microgrid": (64, {"multi_der": True, "reliability": True}),
         "retail": (32, {"retail": True})}
 # the outage walks on the card against the same functions on CPU tensors
@@ -422,6 +445,10 @@ NORTHSTAR_FAULT_WINDOW = (720, 2)
 NORTHSTAR_STUCK_MAX = 1
 # the widths the kernel grid and the launch take as 32-bit ints
 INT32_MAX = 2 ** 31 - 1
+# phase 15 (graphs): the chunk compared, the September window's price
+# scenarios and the bucket it compacts to
+GRAPH_CHUNK = 4096
+GRAPH_SEPT_SCENARIOS, GRAPH_BUCKET = 1000, 8
 
 
 def northstar_pairs():
@@ -455,6 +482,24 @@ def check(ok, what) -> None:
     """A phase's assertion (raised even under ``python -O``)."""
     if not ok:
         raise AssertionError(what)
+
+
+def driver_counts():
+    """The window loop's counters summed over every solve so far
+    (``pdhg.DRIVER_COUNTS``)."""
+    from dervet_tpu_torch.ops import pdhg
+    return dict(pdhg.DRIVER_COUNTS)
+
+
+def driver_line(before, after=None):
+    """Check windows, graph replays and captures, capture seconds, status
+    reads and their wait between two ``driver_counts()``."""
+    after = driver_counts() if after is None else after
+    d = {k: after[k] - before.get(k, 0) for k in after}
+    return (f"windows {d['check_windows']}, replays {d['graph_replays']}, "
+            f"captures {d['graph_captures']}, capture_s "
+            f"{d['capture_s']:.3f}, readbacks {d['readbacks']}, "
+            f"sync_wait_s {d['sync_wait_s']:.3f}")
 
 
 def card_line() -> str:
@@ -2705,13 +2750,16 @@ def fleet_phase(records, pairs):
         # launches by kernel for each replica, from its solve ledgers
         total = {}
         for name in FLEET_REPLICAS:
-            by = {}
+            by, drv = {}, {k: 0 for k in driver_counts()}
             for rid, led in replica_ledgers(fleet.spool(name)).items():
                 for k, n in check_ledger_groups(
                         led, pairs, f"fleet {name} {rid}").items():
                     by[k] = by.get(k, 0) + n
                     total[k] = total.get(k, 0) + n
-            log(f"[fleet] {name}: launches {by}")
+                for k in drv:
+                    drv[k] += (led.get("totals") or {}).get(k, 0)
+            log(f"[fleet] {name}: launches {by}; from its ledgers "
+                f"{driver_line({}, drv)}")
         check(all(total.get(k) for k in records),
               f"fleet: a kernel never launched on the replicas {total}")
         check(sorted(p.name for p in lib.parent.glob(
@@ -3034,23 +3082,29 @@ def ledger_groups(led):
 def launch_widths():
     """A block that records the (kernel, m, n, batch) of every chunk-
     kernel launch made in it, from any thread: the launch wrapper's own
-    arguments, so no path's launches escape the record."""
+    arguments, and the launches each CUDA-graph replay counts (recorded
+    from the same arguments at capture), so no path's launches escape
+    the record."""
     import contextlib
     from dervet_tpu_torch.ops import fused_chunk as fc
 
     @contextlib.contextmanager
     def block():
-        seen, launch = set(), fc._launch
+        seen, launch, replay = set(), fc._launch, fc.add_launches
 
         def record(kernel, state, part, B, m, n, *a, **kw):
             out = launch(kernel, state, part, B, m, n, *a, **kw)
             seen.add((kernel, m, n, B))
             return out
-        fc._launch = record
+
+        def record_replay(counts):
+            replay(counts)
+            seen.update(counts)
+        fc._launch, fc.add_launches = record, record_replay
         try:
             yield seen
         finally:
-            fc._launch = launch
+            fc._launch, fc.add_launches = launch, replay
     return block()
 
 
@@ -3351,6 +3405,61 @@ def northstar_pass(jobs, n_scen, seed):
     return out, time.perf_counter() - t0
 
 
+def eager_solve(solver, c, q, l, u):
+    """A solve as the driver ran it before the graph runner: the eager
+    window loop (``_Solver.run_chunk``), one state read a chunk and
+    compaction to the bucket grid, no rescue (``NORTHSTAR_OPTS``).  The
+    plain version phase 14 holds each pass's answers, wall and memory
+    peaks against."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.ops import pdhg
+    sv, op, dev, opts = solver._solver, solver.op, solver.device, solver.opts
+    const = (solver.dr, solver.dc)
+    full = cur_state = sv.init_state(op, c, q, l, u, *const)
+    idx, cur, total = np.arange(c.shape[0]), (c, q, l, u), 0
+    while True:
+        limit = min(total + opts.compact_chunk_iters, opts.max_iters)
+        cur_state = sv.run_chunk(op, *cur, *const, solver.eta, cur_state,
+                                 limit)
+        act = (~(cur_state.converged | cur_state.infeasible)).cpu().numpy()
+        total, n_active = int(cur_state.total.max()), int(act.sum())
+        if n_active == 0 or total >= opts.max_iters:
+            break
+        bucket = pdhg.compaction_bucket(n_active)
+        if bucket <= len(idx) // 2:
+            pad = np.resize(np.nonzero(act)[0], bucket)
+            full = pdhg._scatter(full, cur_state,
+                                 torch.as_tensor(idx, device=dev))
+            sel = torch.as_tensor(pad, device=dev)
+            cur = tuple(a[sel] for a in cur)
+            cur_state = pdhg._index(cur_state, sel)
+            idx = idx[pad]
+    full = pdhg._scatter(full, cur_state, torch.as_tensor(idx, device=dev))
+    return sv.finalize(op, c, q, l, u, *const, full)
+
+
+def eager_pass(jobs, n_scen, seed):
+    """``northstar_pass`` on the eager window loop (``eager_solve``), on
+    the same draws.  Returns each group's result copied to the host, the
+    wall seconds, and the peak device memory allocated and reserved."""
+    import torch
+    from dervet_tpu_torch import benchlib
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = []
+    for gi, job in enumerate(jobs):
+        C = benchlib.scenario_price_batch_device(job["c_stack"], n_scen,
+                                                 seed + gi)
+        out.append(eager_solve(job["solver"], C, job["q"], job["l"],
+                               job["u"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peaks = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    return [type(res)(*(f.cpu() for f in res)) for res in out], wall, peaks
+
+
 def fault_only(cert):
     """A rejection for the recorded open fault alone: the primal violation
     is worst on the CHP heat-recovery row, and the objective, the dual
@@ -3453,11 +3562,21 @@ def northstar_phase(records, pairs):
     the placed C, Q, L and U, and the first pass's samples on HiGHS and
     certified; in 14.3 the recorded open faults (``NORTHSTAR_FAULT_*``)
     are printed and bounded."""
+    import gc
     import numpy as np
     import torch
     from dervet_tpu_torch.ops import fused_chunk as fc
     card = torch.device(NORTHSTAR_DEVICE)
     total = 0
+    # what earlier phases left to the collector goes first, and what they
+    # still hold is printed, so that each pass's peak can be read as its
+    # own
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[northstar] device memory held from earlier phases "
+        f"{held / 2 ** 30:.3f} GiB, after a collection "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     for name, (kw, pad, n_scen, seeds) in NORTHSTAR_RUNS.items():
         fault = name == NORTHSTAR_FAULT_RUN
         t_run = time.perf_counter()
@@ -3465,12 +3584,25 @@ def northstar_phase(records, pairs):
         log(f"[northstar] {name}: synthetic_case({kw}) pad_to_max={pad}, "
             f"{sum(len(j['lps']) for j in jobs)} windows in {len(jobs)} "
             f"length groups, assembled in {t_build:.2f} s")
+        # the eager window loop's passes first, while the solvers hold no
+        # graph runner: their answers, walls and memory peaks are what
+        # the graph passes are held against
+        eager = {}
+        for seed in seeds:
+            gc.collect()
+            torch.cuda.empty_cache()
+            eager[seed] = eager_pass(jobs, n_scen, seed)
         for p, seed in enumerate(seeds):
             torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             fc.reset_launch_counts()
+            d0 = driver_counts()
             with launch_widths() as seen:
                 out, wall = northstar_pass(jobs, n_scen, seed)
+            drv = driver_line(d0)
             launches = dict(fc.LAUNCHES)
             what = f"{name} pass {p + 1} (seed {seed})"
             check_launch_widths(seen, pairs, f"northstar {what}")
@@ -3501,6 +3633,21 @@ def northstar_phase(records, pairs):
                       f"northstar {what}: {st.h2d_bytes} bytes of C, Q, L "
                       "and U copied to the card")
             peak = torch.cuda.max_memory_allocated()
+            # a graph pool's blocks count as reserved, not allocated
+            peak_reserved = torch.cuda.max_memory_reserved()
+            ref, wall_e, (peak_e, reserved_e) = eager.pop(seed)
+            for gi, ((_, res, _), r) in enumerate(zip(out, ref)):
+                for f in res._fields:
+                    check(torch.equal(getattr(res, f).cpu(), getattr(r, f)),
+                          f"northstar {what} group {gi}: {f} differs from "
+                          "the eager window loop's")
+            log(f"[northstar] {what}: the eager window loop on the same "
+                f"draws, bit-equal: wall {wall_e:.3f} s, peak device "
+                f"memory {peak_e / 2 ** 30:.3f} GiB (reserved "
+                f"{reserved_e / 2 ** 30:.3f} GiB); graphs against it: "
+                f"allocated x{peak / peak_e:.2f}, reserved "
+                f"x{peak_reserved / reserved_e:.2f}")
+            del ref
             samples = ""
             if p == 0:
                 t_hi = t_cert = 0.0
@@ -3514,11 +3661,14 @@ def northstar_phase(records, pairs):
                            f"certificates {t_cert:.2f} s; "
                            f"{n_rej}/{NORTHSTAR_CERTS * len(jobs)} sampled "
                            "answers rejected")
-            log(f"[northstar] {what}: wall {wall:.3f} s on the card, "
-                f"{n_conv}/{n_all} converged, banded launches "
+            log(f"[northstar] {what}: wall {wall:.3f} s on the card "
+                f"({drv}), {n_conv}/{n_all} converged, banded launches "
                 f"{launches[fc.KERNEL_BANDED]}, h2d_bytes "
                 f"{sum(st.h2d_bytes for _, _, st in out)}, peak device "
-                f"memory {peak / 2 ** 30:.3f} GiB{samples}")
+                f"memory {peak / 2 ** 30:.3f} GiB (reserved "
+                f"{peak_reserved / 2 ** 30:.3f} GiB; "
+                f"{base / 2 ** 30:.3f} GiB held before the pass)"
+                f"{samples}")
             del out
         del jobs
         torch.cuda.empty_cache()
@@ -3527,6 +3677,156 @@ def northstar_phase(records, pairs):
     records[fc.KERNEL_BANDED].setdefault("launches_by_run", {})[
         "northstar"] = total
     check(total > 0, "northstar: the banded kernel never launched")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the compiled chunk program against the eager window loop
+# ---------------------------------------------------------------------------
+
+def graph_chunk(solver, cur, state, limit, what):
+    """One chunk of ``solver`` on ``cur`` (c, q, l, u) from ``state`` up to
+    ``limit`` iterations, three ways on the card: the eager window loop
+    (``_Solver.run_chunk``), the graph runner with its captures, and the
+    graph runner again on replays alone.  Every state field, the
+    finalized result and the kernel launches (the warm-ups before the
+    captures set apart) must be equal.  Returns the eager state and the
+    launches by kernel of the three."""
+    import torch
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops import pdhg
+    sv = solver._solver
+    args = (solver.op, *cur, solver.dr, solver.dc)
+    runs, by_kernel = {}, {k: 0 for k in fc.KERNELS}
+    for mode in ("eager", "graph", "replay"):
+        torch.cuda.synchronize()
+        l0, k0 = sv.launches, dict(fc.LAUNCHES)
+        st = pdhg.SolveStats()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            out = sv.run_chunk(*args, solver.eta, state, limit)
+        else:
+            out, _ = solver.run_chunk(cur, state, limit, st)
+            # the runner's buffers move on at its next chunk
+            out = out.map(torch.clone)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fc.LAUNCHES[k] - k0[k] for k in fc.KERNELS}
+        check(sum(got.values()) == sv.launches - l0,
+              f"graphs {what} {mode}: wrapper counts {got}, solver "
+              f"{sv.launches - l0}")
+        for k, n in got.items():
+            by_kernel[k] += n
+        runs[mode] = (out, st, wall, sv.launches - l0 - st.warmup_launches)
+    eager, _, t_e, n_e = runs["eager"]
+    fin_e = sv.finalize(*args, eager)
+    for mode in ("graph", "replay"):
+        out, st, wall, n = runs[mode]
+        for f in pdhg._State._fields:
+            check(torch.equal(getattr(out, f), getattr(eager, f)),
+                  f"graphs {what} {mode}: state field {f} differs from the "
+                  "eager window loop")
+        fin = sv.finalize(*args, out)
+        for f in pdhg.PDHGResult._fields:
+            check(torch.equal(getattr(fin, f), getattr(fin_e, f)),
+                  f"graphs {what} {mode}: result {f} differs")
+        check(n == n_e, f"graphs {what} {mode}: {n} window launches, eager "
+                        f"{n_e}")
+        check(st.graph_replays == st.check_windows > 0
+              and st.readbacks == st.check_windows + 1,
+              f"graphs {what} {mode}: {json.dumps(st.as_dict())}")
+        check(mode == "graph" or st.graph_captures == 0,
+              f"graphs {what}: the replay run captured "
+              f"{st.graph_captures} graphs")
+    g, r = runs["graph"][1], runs["replay"][1]
+    it = fin_e.iters.cpu().numpy()
+    log(f"[graphs] {what}: eager {t_e:.3f} s, graph {runs['graph'][2]:.3f} s "
+        f"({g.graph_captures} captures in {g.capture_s:.3f} s, "
+        f"{g.warmup_launches} warm-up launches), replays only "
+        f"{runs['replay'][2]:.3f} s; windows {r.check_windows}, readbacks "
+        f"{r.readbacks}, sync_wait_s {r.sync_wait_s:.3f}, window launches "
+        f"{n_e}; iterations max {it.max()}, converged "
+        f"{int(fin_e.converged.sum())}/{it.size}, restarts "
+        f"{int(fin_e.restarts.sum())}: bit-equal")
+    return eager, by_kernel
+
+
+def graph_phase(records):
+    """Phase 15: the graph driver against the eager window loop on the
+    card, bit for bit, over the first chunk of four groups (and 14.3's
+    September window's next chunk after compaction to bucket 8)."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch import benchlib
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import (BandedOp, CompiledLPSolver,
+                                           DenseOp, PDHGOptions, _index)
+    card = torch.device("cuda:0")
+    opts = PDHGOptions(cpu_rescue_after=None)
+
+    def noisy(lp, B, seed):
+        rng = np.random.default_rng(seed)
+        return np.where(lp.c != 0, rng.lognormal(0.0, 0.15, (B, lp.n)) * lp.c,
+                        0.0)
+
+    t0 = time.perf_counter()
+    main = benchlib.window_lps(benchlib.synthetic_case(daily_cycle_limit=1))[0]
+    retail_name, retail, retail_B, _ = run_shapes("retail")[0]
+    _, mg = benchlib.build_window_lps(benchlib.synthetic_case(
+        multi_der=True))
+    sept = mg[NORTHSTAR_FAULT_WINDOW[0]][NORTHSTAR_FAULT_WINDOW[1]]
+    month = benchlib.window_lps(benchlib.synthetic_case(**TS_MONTH))[0]
+    log(f"[graphs] window LPs built in {time.perf_counter() - t0:.1f} s")
+    groups = (
+        ("main", main, noisy(main, 7 * MAIN_CASES, 0), fc.KERNEL_BANDED,
+         None),
+        (retail_name, retail, noisy(retail, retail_B, 1), fc.KERNEL_DENSE,
+         None),
+        ("14.3 September", sept, benchlib.scenario_price_batch(
+            sept, GRAPH_SEPT_SCENARIOS, seed=31), fc.KERNEL_BANDED,
+         GRAPH_BUCKET),
+        ("13 5-minute month", month, month.c[None], None, None))
+    launches = {k: 0 for k in fc.KERNELS}
+    for name, lp, C, kernel, compact_to in groups:
+        solver = CompiledLPSolver(lp, opts, device=card)
+        sv, op = solver._solver, solver.op
+        B = C.shape[0]
+        what = f"{name} {lp.m}x{lp.n} B={B}"
+        if kernel == fc.KERNEL_BANDED:
+            cfg = fc.config_for(lp.m, lp.n, op.offsets, op.compact,
+                                solver.variant)
+            check(isinstance(op, BandedOp) and sv.use_kernel
+                  and cfg != fc.SHARED_CONFIG
+                  and (name != "main" or op.wide_w is not None),
+                  f"graphs {what}: {type(op).__name__} configuration {cfg}")
+        elif kernel == fc.KERNEL_DENSE:
+            check(isinstance(op, DenseOp) and sv.use_kernel,
+                  f"graphs {what}: {type(op).__name__}")
+        else:
+            check(not sv.use_kernel, f"graphs {what}: a kernel takes it")
+        cur = (torch.as_tensor(C, dtype=torch.float32, device=card),) + tuple(
+            torch.as_tensor(np.broadcast_to(a, (B, a.size)).copy(),
+                            dtype=torch.float32, device=card)
+            for a in (lp.q, lp.l, lp.u))
+        state = sv.init_state(op, *cur, solver.dr, solver.dc)
+        eager, by = graph_chunk(solver, cur, state, GRAPH_CHUNK, what)
+        if compact_to:
+            left = np.nonzero((~(eager.converged | eager.infeasible))
+                              .cpu().numpy())[0]
+            check(left.size >= compact_to,
+                  f"graphs {what}: {left.size} instances left after the "
+                  "first chunk")
+            sel = torch.as_tensor(left[:compact_to], device=card)
+            _, by8 = graph_chunk(
+                solver, tuple(a[sel] for a in cur), _index(eager, sel),
+                2 * GRAPH_CHUNK, f"{name} compacted to bucket {compact_to}")
+            by = {k: by[k] + by8[k] for k in by}
+        for k in launches:
+            launches[k] += by[k]
+        check(kernel is None or by[kernel] > 0,
+              f"graphs {what}: {kernel} never launched")
+        del solver, cur, state, eager
+    torch.cuda.empty_cache()
+    add_launches(records, "graphs", launches)
 
 
 def timed_in_thread(fn):
@@ -3603,35 +3903,30 @@ def main() -> int:
     t0 = time.perf_counter()
     pairs = pair_phase(records)
     log(f"[pairs] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    main_res = main_phases(records, checked, profile=args.profile)
-    log(f"[main] phases 3-5 done in {time.perf_counter() - t0:.1f} s")
+
+    def timed(what, fn, *a):
+        t0, d0 = time.perf_counter(), driver_counts()
+        out = fn(*a)
+        log(f"[{what}] done in {time.perf_counter() - t0:.1f} s; "
+            f"{driver_line(d0)}")
+        return out
+    # every later phase rides the graphs: hold them first
+    timed("graphs", graph_phase, records)
+    main_res = timed("main", main_phases, records, checked, args.profile)
     for kind in RUNS:
-        t0 = time.perf_counter()
-        run_phase(kind, records, checked, found)
-        log(f"[{kind}] done in {time.perf_counter() - t0:.1f} s")
+        timed(kind, run_phase, kind, records, checked, found)
     for what, phase in (("design", design_phase),
                         ("montecarlo", montecarlo_phase),
                         ("serve", serve_phase)):
-        t0 = time.perf_counter()
-        phase(records, pairs)
-        log(f"[{what}] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fleet = fleet_phase(records, pairs)
-    log(f"[fleet] done in {time.perf_counter() - t0:.1f} s")
+        timed(what, phase, records, pairs)
+    fleet = timed("fleet", fleet_phase, records, pairs)
     try:
-        t0 = time.perf_counter()
-        portfolio_phase(records, pairs, fleet)
-        log(f"[portfolio] done in {time.perf_counter() - t0:.1f} s")
+        timed("portfolio", portfolio_phase, records, pairs, fleet)
     finally:
         fleet.close()
-    t0 = time.perf_counter()
-    parallel_phase(records, checked, pairs, main_res)
-    log(f"[parallel] done in {time.perf_counter() - t0:.1f} s")
+    timed("parallel", parallel_phase, records, checked, pairs, main_res)
     del main_res
-    t0 = time.perf_counter()
-    northstar_phase(records, pairs)
-    log(f"[northstar] done in {time.perf_counter() - t0:.1f} s")
+    timed("northstar", northstar_phase, records, pairs)
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     card = card_line()
     print(card)

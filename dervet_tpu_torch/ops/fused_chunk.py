@@ -19,7 +19,9 @@ layout.  Each wrapper takes its plain PyTorch version (on the dense
 ``wide_w``/``Kh``) only for tensors on the CPU (the tests); for CUDA
 tensors it launches its kernel or raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel, incremented at the
-launch and nowhere else.
+launch and nowhere else.  A launch made while its thread captures a CUDA
+graph runs nothing: it is recorded for the graph (:func:`recording`),
+and each replay of the graph counts it (:func:`add_launches`).
 
 The kernels are compiled at first use with ``nvcc`` from the package's own
 source into ``dervet_tpu_torch/_build/`` (a plain C interface loaded with
@@ -27,6 +29,7 @@ ctypes), for ``sm_90a``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -77,6 +80,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
+# per thread: the launches recorded into the graph it is capturing
+_capture = threading.local()
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = ""
@@ -88,9 +93,35 @@ def reset_launch_counts() -> None:
             LAUNCHES[k] = 0
 
 
-def _count_launch(kernel: str) -> None:
+def _count_launch(kernel: str, m: int, n: int, B: int) -> None:
+    tally = getattr(_capture, "tally", None)
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        key = (kernel, m, n, B)
+        tally[key] = tally.get(key, 0) + 1
+        return
     with _launch_lock:
         LAUNCHES[kernel] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """A block in which this thread captures a CUDA graph: the launches
+    it makes on the capturing stream go into the yielded ``{(kernel, m,
+    n, batch): count}`` instead of ``LAUNCHES`` (nothing runs until a
+    replay)."""
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches one replay of a captured graph makes
+    (``counts`` as :func:`recording` gave them)."""
+    with _launch_lock:
+        for (kernel, *_), n in counts.items():
+            LAUNCHES[kernel] += n
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +333,10 @@ def banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, diags, offsets,
                        wide_rows, wide_w, n_eq: int, iters: int,
                        variant: str = VANILLA, alpha: float = 1.0,
                        k0=None, ax=None, ay=None):
-    """Plain version of the banded kernel (same arguments)."""
-    offs = tuple(int(v) for v in offsets.tolist())
+    """Plain version of the banded kernel (same arguments; ``offsets``
+    also as the op's tuple, which reads nothing back from a tensor)."""
+    offs = (offsets if isinstance(offsets, tuple)
+            else tuple(int(v) for v in offsets.tolist()))
     n = x.shape[1]
     return plain_chunk(
         lambda v: banded_matvec(diags, offs, wide_rows, wide_w, v, n),
@@ -469,7 +502,7 @@ def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
         else:
             err = lib.dense_chunk(*args, stream)
     _raise_on(lib, kernel, err)
-    _count_launch(kernel)
+    _count_launch(kernel, m, n, B)
     return tuple(out)
 
 
@@ -483,7 +516,7 @@ def banded_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq: int,
     wide pair's compact forms (``op.compact``)."""
     if x.device.type == "cpu":
         return banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys,
-                                  op.diags, op.offsets_t, op.wide_rows,
+                                  op.diags, op.offsets, op.wide_rows,
                                   op.wide_w, n_eq, iters, variant, alpha,
                                   k0, ax, ay)
     if x.device.type != "cuda":

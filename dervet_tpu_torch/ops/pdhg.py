@@ -6,9 +6,22 @@ Counterpart of ``dervet_tpu/ops/pdhg.py``.  Solves the canonical-form LP
 
 for a batch of instances sharing ``K`` (only ``c, q, l, u`` vary).  Every
 tensor carries a leading batch dimension (B, ·) where the JAX package
-used ``vmap``; Python loops replace ``lax.scan``/``while_loop``.  Every
-solve is driven as a batch (B >= 1), so a single window also rides the
-chunk kernel.
+used ``vmap``.  Every solve is driven as a batch (B >= 1), so a single
+window also rides the chunk kernel.
+
+The compiled chunk program.  The JAX package runs each host chunk as one
+jitted ``while_loop`` whose body is the check window.  Here the check
+window is one function of device tensors that reads nothing back
+(:meth:`_Solver.window`), and a :class:`_WindowRunner` (one a solver and
+batch width) holds the window's inputs, context and state in static
+buffers.  On a CUDA device each window is the replay of a
+``torch.cuda.CUDAGraph`` captured once for its number of sub-blocks; on
+the CPU the same function runs eagerly on the buffers, the plain
+version the tests hold the graphs against.  The host makes one status
+read after each window (and one as a chunk starts), which ends the
+chunk exactly when no instance is active.  The row-sharded solve
+(``parallel/timeshard.py``) keeps the eager window loop,
+:meth:`_Solver.run_chunk`.
 
 The iteration chunk (``sub`` PDHG iterations between restart checks)
 runs in the hand-written CUDA kernels of :mod:`.fused_chunk` when the op
@@ -18,9 +31,9 @@ PyTorch chunk, and the ledger records ``unsupported_shape``.
 
 Per-instance masking: under ``vmap`` the JAX ``while_loop`` freezes each
 instance once ITS OWN condition fails (converged, infeasible, or the
-chunk's iteration limit).  :meth:`_Solver.run_chunk` reproduces that by
-applying each check window's update only where the instance is still
-active, so finished instances do not drift and iteration counts match.
+chunk's iteration limit).  The window reproduces that by applying its
+update only where the instance is still active, so finished instances
+do not drift and iteration counts match.
 """
 from __future__ import annotations
 
@@ -569,9 +582,16 @@ class PDHGResult(NamedTuple):
 @dataclasses.dataclass
 class SolveStats:
     """Per-``solve()`` device-traffic accounting (the solve-ledger raw
-    material).  ``sync_wait_s`` is time blocked on the per-chunk status
-    readback, which includes waiting for the enqueued device work.
-    ``kernel_launches`` counts chunk-kernel launches of this solve."""
+    material).  ``readbacks`` counts every status read of the solve: one
+    after each check window and one as each chunk starts, so windows
+    plus chunks; ``sync_wait_s`` is the time blocked in them, which
+    includes waiting for the enqueued device work.  ``check_windows``
+    counts check windows; on a CUDA device each is a ``graph_replays``
+    of one of the ``graph_captures`` graphs, whose captures took
+    ``capture_s`` of host time (a thread's first for the solver after
+    one eager warm-up window of one sub-block on the capture stream).
+    ``kernel_launches`` counts the chunk-kernel launches of this solve,
+    replayed ones and the warm-ups' ``warmup_launches`` included."""
     dispatches: int = 0
     chunks: int = 0
     compile_events: int = 0      # first execution of a (program, shape)
@@ -588,10 +608,15 @@ class SolveStats:
     cadence_final: int = 0
     restart_scheme: str = ""
     kernel_launches: int = 0
+    check_windows: int = 0
+    graph_captures: int = 0
+    graph_replays: int = 0
+    capture_s: float = 0.0
+    warmup_launches: int = 0
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
-        for k in ("h2d_s", "sync_wait_s", "result_fetch_s"):
+        for k in ("h2d_s", "sync_wait_s", "result_fetch_s", "capture_s"):
             d[k] = round(d[k], 4)
         d["bucket_occupancy"] = [list(b) for b in d["bucket_occupancy"]]
         return d
@@ -692,13 +717,16 @@ def state_from_numpy(fields: dict, device=None) -> _State:
     return _State(**{f: conv(f, fields[f]) for f in _State._fields})
 
 
-def _where(mask, new: _State, old: _State) -> _State:
-    """Field-wise select on the batch axis: ``new`` where ``mask``."""
-    out = {}
+def _where(mask, new: _State, old: _State,
+           out: Optional[_State] = None) -> _State:
+    """Field-wise select on the batch axis: ``new`` where ``mask``; into
+    ``out``'s tensors when given (they may be ``old``'s own)."""
+    res = {}
     for f in _State._fields:
         a, b = getattr(new, f), getattr(old, f)
-        out[f] = torch.where(mask.view(-1, *([1] * (a.dim() - 1))), a, b)
-    return _State(**out)
+        res[f] = torch.where(mask.view(-1, *([1] * (a.dim() - 1))), a, b,
+                             out=None if out is None else getattr(out, f))
+    return _State(**res)
 
 
 def _index(s: _State, idx) -> _State:
@@ -853,6 +881,9 @@ class _Solver:
         self.use_kernel = use_kernel and rows is None
         self.rows = rows if rows is not None else LOCAL_ROWS
         self.launches = 0
+        # threads that ran the warm-up before a graph capture of this
+        # solver (_WindowRunner._capture)
+        self.warm_threads: set = set()
 
     # -- pieces ---------------------------------------------------------
     def _context(self, c, q, l, u, dr, dc) -> _Context:
@@ -887,7 +918,10 @@ class _Solver:
                 op, t.c_s, t.q_s, t.l_s, t.u_s, omega, eta, x, y, xs, ys,
                 self.n_eq, self.sub, variant=self.variant, alpha=self.alpha,
                 k=k, ax=ax, ay=ay)
-            if x.device.type == "cuda":
+            # a launch under capture runs at the graph's replays, which
+            # count it (_WindowRunner.step)
+            if x.device.type == "cuda" \
+                    and not torch.cuda.is_current_stream_capturing():
                 self.launches += 1
             return out
         floor = fused_chunk.floor_of(self.m, self.n_eq, x.dtype, x.device)
@@ -956,11 +990,44 @@ class _Solver:
             return (s.cadence // self.sub).clamp_min(1)
         return torch.ones_like(s.cadence)
 
+    def window(self, op, t: _Context, s: _State, eta, dr, dc, limit,
+               n_max: int, out: Optional[_State] = None) -> _State:
+        """One check window as a function of device tensors that reads
+        nothing back (the body of the JAX package's chunk ``while_loop``):
+        the instances active under ``limit`` (a device int32 scalar)
+        advance a static ``n_max`` sub-blocks, each instance its own
+        ``n_sub`` of them, then take the restart, primal-weight and
+        convergence update; the others keep their state.  ``out``: write
+        the new state into these tensors (``s``'s own steps in place)."""
+        active = ~s.converged & ~s.infeasible & (s.total < limit)
+        return _where(active, self._body(op, t, s, eta, dr, dc,
+                                         self._n_sub(s), n_max, False), s,
+                      out)
+
+    def status(self, s: _State, limit) -> torch.Tensor:
+        """What the host reads after each window, as one int32 device
+        tensor: the instances active under ``limit``, the largest
+        sub-block count among them, the largest total, the unfinished
+        (neither converged nor infeasible) count, the largest cadence,
+        then the (B,) unfinished mask (:class:`_StatusRead`)."""
+        unfinished = ~(s.converged | s.infeasible)
+        active = unfinished & (s.total < limit)
+        head = torch.stack([
+            active.sum(dtype=torch.int32),
+            torch.where(active, self._n_sub(s), 0).max(),
+            s.total.max(), unfinished.sum(dtype=torch.int32),
+            s.cadence.max()])
+        return torch.cat([head, unfinished.to(torch.int32)])
+
     def run_chunk(self, op, c, q, l, u, dr, dc, eta, state: _State,
                   limit: int) -> _State:
-        """Advance every instance until it converges, certifies
-        infeasibility, or reaches ``limit`` total iterations; each check
-        window's update lands only on the instances still active."""
+        """The eager window loop: advance every instance until it
+        converges, certifies infeasibility, or reaches ``limit`` total
+        iterations; each check window's update lands only on the
+        instances still active.  Functional (a new state each window,
+        the uniform sub-block form where every active instance runs
+        ``n_max``); the row-sharded solve runs it, and the tests hold the
+        graph runner against it."""
         t = self._context(c, q, l, u, dr, dc)
         s = state
         while True:
@@ -1095,6 +1162,178 @@ class _Solver:
 
 
 # ---------------------------------------------------------------------------
+# The compiled chunk program: check windows over static buffers
+# ---------------------------------------------------------------------------
+
+class _StatusRead(NamedTuple):
+    """One host read of :meth:`_Solver.status`."""
+    n_act: int
+    n_max: int
+    total: int
+    n_unfinished: int
+    cadence: int
+    unfinished: np.ndarray     # (B,) bool
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    launches: dict       # {(kernel, m, n, batch): launches a replay makes}
+
+
+# the counters of a solve that the window loop keeps, summed over every
+# solve of the process in DRIVER_COUNTS (chip_smoke.py reads them by
+# phase); the split batch, the solve ledger and its request slices carry
+# the same fields
+DRIVER_FIELDS = ("chunks", "check_windows", "graph_replays",
+                  "graph_captures", "capture_s", "readbacks", "sync_wait_s",
+                  "warmup_launches")
+DRIVER_COUNTS = {k: 0 for k in DRIVER_FIELDS}
+_driver_lock = threading.Lock()
+
+
+_capture_streams: dict = {}
+_capture_lock = threading.Lock()
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The stream graph captures on ``device`` run on (one a device,
+    under ``_capture_lock``), drawn once from PyTorch's high-priority
+    stream pool, which nothing else of the package draws from, so no
+    other thread's work lands on it.  One stream, not one a thread:
+    each (cuBLAS handle, stream) pair a capture's warm-up meets keeps a
+    workspace (32 MiB on an H100) for the life of the process."""
+    st = _capture_streams.get(device)
+    if st is None:
+        st = _capture_streams[device] = torch.cuda.Stream(device=device,
+                                                          priority=-1)
+    return st
+
+
+def _into(buf, new: torch.Tensor) -> torch.Tensor:
+    """``new`` copied into the buffer ``buf`` (a new one when None)."""
+    if buf is None:
+        return torch.empty(new.shape, dtype=new.dtype,
+                           device=new.device).copy_(new)
+    if buf is not new:
+        buf.copy_(new)
+    return buf
+
+
+class _WindowRunner:
+    """The compiled chunk program of one solver at one batch width: the
+    check window's inputs (``c, q, l, u, dr, dc, eta``), its context, the
+    chunk's iteration ``limit``, every state field and the status in
+    static buffers, stepped in place.  With a graph ``pool`` (CUDA) each
+    window replays the ``torch.cuda.CUDAGraph`` captured at the first
+    window of its ``n_max`` (at most log2(cadence cap / sub) + 1 graphs);
+    without one the window function runs eagerly on the buffers.  Each
+    window ends by writing the new state and status into the buffers, so
+    replays chain.  The buffers are allocated at the first ``load``."""
+
+    def __init__(self, sv: _Solver, op, dr, dc, eta, pool=None):
+        self.sv, self.op, self.pool = sv, op, pool
+        self.dr, self.dc, self.eta = (a.clone() for a in (dr, dc, eta))
+        self.limit = torch.zeros((), dtype=torch.int32, device=dr.device)
+        self.inputs = (None,) * 4
+        self.ctx = self.state = self.status = None
+        self.graphs: dict = {}
+        # recorded where the last driver's reads of the buffers were
+        # enqueued (release); the next load waits on it
+        self.free = None
+
+    def load(self, c, q, l, u, state: _State, limit: int) -> None:
+        """Copy a chunk's inputs and state into the buffers, rebuild the
+        context there, set the limit and compute the first status."""
+        sv = self.sv
+        if self.free is not None:
+            torch.cuda.current_stream(self.limit.device).wait_event(self.free)
+        self.inputs = tuple(map(_into, self.inputs, (c, q, l, u)))
+        ctx = sv._context(*self.inputs, self.dr, self.dc)
+        # the first context becomes the buffers (its unscaled c, q, l, u
+        # are the input buffers themselves)
+        self.ctx = ctx if self.ctx is None else _Context(*map(_into,
+                                                              self.ctx, ctx))
+        self.state = _State(**{
+            f: _into(None if self.state is None else getattr(self.state, f),
+                     getattr(state, f)) for f in _State._fields})
+        self.limit.fill_(limit)
+        st = sv.status(self.state, self.limit)
+        self.status = st if self.status is None else _into(self.status, st)
+
+    def release(self) -> None:
+        if self.pool is not None:
+            self.free = torch.cuda.Event()
+            self.free.record(torch.cuda.current_stream(self.limit.device))
+
+    def _window(self, n_max: int) -> None:
+        sv = self.sv
+        sv.window(self.op, self.ctx, self.state, self.eta, self.dr, self.dc,
+                  self.limit, n_max, out=self.state)
+        self.status.copy_(sv.status(self.state, self.limit))
+
+    def read(self, stats: SolveStats) -> _StatusRead:
+        t0 = time.perf_counter()
+        v = self.status.cpu().numpy()
+        out = _StatusRead(*(int(a) for a in v[:5]), v[5:] != 0)
+        stats.readbacks += 1
+        stats.sync_wait_s += time.perf_counter() - t0
+        return out
+
+    def step(self, n_max: int, stats: SolveStats) -> None:
+        """One check window of ``n_max`` sub-blocks on the buffers."""
+        stats.check_windows += 1
+        if self.pool is None:
+            self._window(n_max)
+            return
+        g = self.graphs.get(n_max)
+        if g is None:
+            g = self.graphs[n_max] = self._capture(n_max, stats)
+        g.graph.replay()
+        stats.graph_replays += 1
+        if g.launches:
+            fused_chunk.add_launches(g.launches)
+            self.sv.launches += sum(g.launches.values())
+
+    def _capture(self, n_max: int, stats: SolveStats) -> _Graph:
+        """Capture the window of ``n_max`` sub-blocks on the device's
+        capture stream, in the solver's pool; one capture at a time.
+        Before this thread's first capture for the solver, one eager
+        window of one sub-block runs on that stream, its result dropped:
+        it loads the kernel library, sets the solver's kernel's shared
+        memory and gives this thread's cuBLAS handle a workspace on the
+        stream, none of which may happen under capture (and none of
+        which depends on the batch width).  The capture is thread-local,
+        since other threads launch work on the card meanwhile; a failure
+        raises.  ``capture_s`` is host time, the wait for the lock
+        included."""
+        t0 = time.perf_counter()
+        dev = self.status.device
+        cur = torch.cuda.current_stream(dev)
+        launches0 = self.sv.launches
+        with _capture_lock:
+            side = _capture_stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                if threading.get_ident() not in self.sv.warm_threads:
+                    self.sv.window(self.op, self.ctx, self.state, self.eta,
+                                   self.dr, self.dc, self.limit, 1)
+                    self.sv.warm_threads.add(threading.get_ident())
+                graph = torch.cuda.CUDAGraph()
+                with fused_chunk.recording() as tally:
+                    graph.capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        self._window(n_max)
+                    finally:
+                        graph.capture_end()
+            cur.wait_stream(side)
+        stats.warmup_launches += self.sv.launches - launches0
+        stats.graph_captures += 1
+        stats.capture_s += time.perf_counter() - t0
+        return _Graph(graph, dict(tally))
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -1147,7 +1386,14 @@ class CompiledLPSolver:
 
     ``K`` is fixed; ``c, q, l, u`` may carry a leading batch dimension.
     Every solve runs batched: 1-D inputs solve as a batch of one and come
-    back 1-D."""
+    back 1-D.
+
+    The check windows run on a :class:`_WindowRunner` a batch width, kept
+    across solves with their graphs (one graph pool a solver; its solves
+    never overlap).  On a CUDA device each window replays a CUDA graph;
+    on the CPU it runs eagerly.  The eager window loop on the card is
+    :meth:`_Solver.run_chunk`, which the checks hold the graphs
+    against."""
 
     def __init__(self, lp: LP, opts: Optional[PDHGOptions] = None,
                  device=None):
@@ -1188,6 +1434,9 @@ class CompiledLPSolver:
         self._solver = _Solver(
             self.opts, self.lp.m, self.lp.n, self.lp.n_eq,
             use_kernel=fused_chunk.supports(self.op, self.variant))
+        self._runners: dict = {}
+        self._graph_pool = None
+        self._shard_clones: dict = {}
 
     def _note_exec(self, program: str, shape, stats) -> None:
         key = (program, tuple(shape))
@@ -1232,6 +1481,16 @@ class CompiledLPSolver:
             clone.op = op_to(self.op, device)
             clone.dr, clone.dc, clone.eta = (a.to(device) for a in
                                              (self.dr, self.dc, self.eta))
+        return clone
+
+    def shard(self, i: int, device) -> "CompiledLPSolver":
+        """The clone on ``device`` that solves shard ``i`` of a split
+        batch (``parallel.mesh``), kept across calls with its graphs."""
+        device = resolve_device(device)
+        key = (i, device)
+        clone = self._shard_clones.get(key)
+        if clone is None:
+            clone = self._shard_clones[key] = self.to_device(device)
         return clone
 
     def _to_device(self, arrs, stats: Optional[SolveStats]):
@@ -1332,29 +1591,20 @@ class CompiledLPSolver:
             while True:
                 limit = min(total + self.opts.compact_chunk_iters, max_iters)
                 self._note_exec("chunk", cur[0].shape, stats)
-                cur_state = sv.run_chunk(self.op, *cur, self.dr, self.dc,
-                                         self.eta, cur_state, limit)
-                t0 = time.perf_counter()
-                act_t = ~(cur_state.converged | cur_state.infeasible)
-                total, n_active, cad = (int(v) for v in torch.stack(
-                    [cur_state.total.max(), act_t.sum(dtype=torch.int32),
-                     cur_state.cadence.max()]).tolist())
+                cur_state, st = self.run_chunk(cur, cur_state, limit, stats)
+                total, n_active = st.total, st.n_unfinished
                 stats.dispatches += 2
-                stats.chunks += 1
-                stats.readbacks += 1
-                stats.sync_wait_s += time.perf_counter() - t0
-                stats.cadence_final = cad
+                stats.cadence_final = st.cadence
                 if n_active == 0 or total >= max_iters:
                     break
                 if rescue_after is not None and total >= rescue_after:
-                    act = to_host(act_t)
-                    n_distinct = np.unique(idx[act]).size
+                    n_distinct = np.unique(idx[st.unfinished]).size
                     if n_distinct <= min(self.opts.cpu_rescue_max,
                                          max(1, B // 8)):
                         break     # hand the straggler minority to the CPU
                 bucket = compaction_bucket(n_active)
                 if bucket <= len(idx) // 2:
-                    sel = np.nonzero(to_host(act_t))[0]
+                    sel = np.nonzero(st.unfinished)[0]
                     pad = np.resize(sel, bucket)  # pad by repeating survivors
                     stats.compact_events += 1
                     stats.dispatches += 1
@@ -1373,7 +1623,49 @@ class CompiledLPSolver:
             self._note_exec("fin", c.shape, stats)
             stats.dispatches += 1
             stats.kernel_launches += sv.launches - launches0
-            return sv.finalize(*args, full_state)
+            out = sv.finalize(*args, full_state)
+            self.release_buffers()
+            return out
+
+    def run_chunk(self, cur, state: _State, limit: int,
+                  stats: SolveStats) -> tuple[_State, _StatusRead]:
+        """One host chunk of the batch ``cur`` (``c, q, l, u``) from
+        ``state``: check windows on the width's runner until no instance
+        is active under ``limit``, with one status read as the chunk
+        starts and one after each window.  Returns the runner's state
+        buffers (valid until its next chunk) and the last read."""
+        before = {k: getattr(stats, k) for k in DRIVER_FIELDS}
+        runner = self._runner(cur[0].shape[0])
+        runner.load(*cur, state, limit)
+        st = runner.read(stats)
+        while st.n_act:
+            runner.step(st.n_max, stats)
+            st = runner.read(stats)
+        stats.chunks += 1
+        with _driver_lock:
+            for k, v in before.items():
+                DRIVER_COUNTS[k] += getattr(stats, k) - v
+        return runner.state, st
+
+    def _runner(self, B: int) -> _WindowRunner:
+        r = self._runners.get(B)
+        if r is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            r = self._runners[B] = _WindowRunner(
+                self._solver, self.op, self.dr, self.dc, self.eta,
+                self._graph_pool)
+        return r
+
+    def release_buffers(self) -> None:
+        """Order every runner's next chunk after the work this thread has
+        enqueued so far, which may still read a runner's state buffers
+        (``run_chunk`` returns them): called by a driver, under the solve
+        lock, once it has enqueued its last read of them.  Another
+        thread's solve, on another stream, then loads the buffers only
+        after those reads."""
+        for r in self._runners.values():
+            r.release()
 
     def _cpu_rescue(self, state: _State, c, q, l, u, total: int,
                     stats: Optional[SolveStats] = None) -> _State:

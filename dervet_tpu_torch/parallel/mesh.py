@@ -10,13 +10,14 @@ one process:
 * the per-scenario data ``c, q, l, u`` is split on the leading axis; each
   device runs the batched solve on its shard (no traffic between devices
   in the hot loop);
-* the only cross-shard reductions are the per-chunk termination readback
-  (the largest iteration count, the active count) and the final
-  statistics, all on the host.
+* the only cross-shard reductions are the per-chunk termination test
+  (the largest iteration count, the active count, from each shard's last
+  status read) and the final statistics, all on the host.
 
-Each shard's chunks are launched from a thread of its own, so on several
-GPUs the shards run at once and no shard's status readback waits before
-the other shards' chunks are launched.
+Each shard's chunks run from a thread of its own, so on several GPUs the
+shards run at once and no shard's status reads wait on another shard.
+Each shard is a clone kept on the solver (``CompiledLPSolver.shard``),
+so its check-window graphs are captured once across calls.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.pdhg import CompiledLPSolver, PDHGResult, SolveStats
+from ..ops.pdhg import (DRIVER_FIELDS, CompiledLPSolver, PDHGResult,
+                        SolveStats)
 from . import elastic
 
 
@@ -137,10 +139,12 @@ def solve_batch_sharded(solver: CompiledLPSolver, devices,
                 for a, w in zip(arrs, widths)]
         per = -(-B // D)
         arrs = [_pad_rows(a, per * D - B) for a in arrs]
-        shards = [solver.to_device(d) for d in devices]
+        shards = [solver.shard(i, d) for i, d in enumerate(devices)]
         data = [[a[i * per:(i + 1) * per].to(s.device) for a in arrs]
                 for i, s in enumerate(shards)]
         launches0 = [s._solver.launches for s in shards]
+        # per shard: its thread's window counters, merged at the end
+        shard_stats = [SolveStats() for _ in shards]
         # each shard's thread runs on the caller's stream of its device,
         # where the uploads above were ordered
         streams = [torch.cuda.current_stream(s.device)
@@ -170,21 +174,15 @@ def solve_batch_sharded(solver: CompiledLPSolver, devices,
             while True:
                 limit = min(total + opts.compact_chunk_iters, opts.max_iters)
                 solver._note_exec("sh_chunk", (per, lp.n), stats)
-                states = list(pool.map(
-                    lambda i: on(i, lambda: shards[i]._solver.run_chunk(
-                        *args(i), shards[i].eta, states[i], limit)),
+                runs = list(pool.map(
+                    lambda i: on(i, lambda: shards[i].run_chunk(
+                        data[i][:4], states[i], limit, shard_stats[i])),
                     range(D)))
-                t0 = time.perf_counter()
-                reads = [torch.stack([
-                    s.total.max(),
-                    (~(s.converged | s.infeasible)).sum(dtype=torch.int32)
-                ]).tolist() for s in states]
-                total = max(r[0] for r in reads)
-                n_active = sum(r[1] for r in reads)
+                states = [st for st, _ in runs]
+                total = max(r.total for _, r in runs)
+                n_active = sum(r.n_unfinished for _, r in runs)
                 stats.dispatches += 2 * D
                 stats.chunks += 1
-                stats.readbacks += 1
-                stats.sync_wait_s += time.perf_counter() - t0
                 if n_active == 0 or total >= opts.max_iters:
                     break
             solver._note_exec("sh_fin", (per, lp.n), stats)
@@ -193,8 +191,16 @@ def solve_batch_sharded(solver: CompiledLPSolver, devices,
                     *args(i), states[i])),
                 range(D)))
             stats.dispatches += D
+            for i, s in enumerate(shards):
+                on(i, s.release_buffers)
         stats.kernel_launches += sum(s._solver.launches - n0
                                      for s, n0 in zip(shards, launches0))
+        # the shards' window counters; chunks are counted above, once a
+        # chunk of the whole batch
+        for k in DRIVER_FIELDS:
+            if k != "chunks":
+                setattr(stats, k, getattr(stats, k)
+                        + sum(getattr(s, k) for s in shard_stats))
         res = PDHGResult(*(torch.cat([getattr(p, f).to(solver.device)
                                       for p in parts])[:B]
                            for f in PDHGResult._fields))

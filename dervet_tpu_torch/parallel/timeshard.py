@@ -186,6 +186,9 @@ class TimeShardedLPSolver:
         total, chunks = 0, 0
         while True:
             limit = min(total + opts.compact_chunk_iters, opts.max_iters)
+            # the eager window loop, not the CUDA-graph runner: every
+            # window all-reduces through the process group, and a gloo
+            # collective runs on the host, which a graph cannot capture
             state = sv.run_chunk(*args, self.eta, state, limit)
             chunks += 1
             total, n_active = (int(v) for v in torch.stack([

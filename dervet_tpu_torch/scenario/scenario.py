@@ -1338,7 +1338,7 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                                   device=device)
     import torch
     from ..ops import warmstart
-    from ..ops.pdhg import SolveStats
+    from ..ops.pdhg import DRIVER_FIELDS, SolveStats
     from ..parallel import elastic as _elastic
     # caller-owned stats: the pipeline can route two same-structure
     # subgroups to ONE cached solver from different workers, and a shared
@@ -1687,10 +1687,11 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
             entry["h2d_bytes"] = staged.h2d_bytes
         d = stats.as_dict()
         entry["h2d_bytes"] = entry.get("h2d_bytes", 0) + d["h2d_bytes"]
-        for k in ("dispatches", "chunks", "compile_events",
-                  "h2d_s", "readbacks", "sync_wait_s",
+        # the driver's fields: chunks, check windows, their CUDA graphs
+        # and status reads
+        for k in ("dispatches", "compile_events", "h2d_s",
                   "result_fetch_s", "result_bytes", "cpu_rescued",
-                  "compact_events", "bucket_occupancy"):
+                  "compact_events", "bucket_occupancy") + DRIVER_FIELDS:
             entry[k] = d[k]
         # the staged device_put bypasses _data's counter — count its
         # arrays here so bytes and transfers stay mutually consistent
@@ -2521,14 +2522,17 @@ def summarize_solve_ledger(entries, dispatch_solve_s: float,
     entry walls — cumulative across pipeline threads, the same
     convention as ``dispatch_solve_s`` — so ``accounted_fraction``
     states how much of the measured solve phase the ledger explains."""
+    from ..ops.pdhg import DRIVER_FIELDS
     groups = []
+    # the driver's fields: its seconds with the times, the rest counted
     totals = {k: 0.0 for k in ("solve_s", "stack_s", "h2d_s",
-                               "sync_wait_s", "result_fetch_s", "other_s",
-                               "staged_stack_s", "staged_h2d_s")}
+                               "result_fetch_s", "other_s",
+                               "staged_stack_s", "staged_h2d_s")
+              + tuple(k for k in DRIVER_FIELDS if k.endswith("_s"))}
     counts = {k: 0 for k in ("h2d_bytes", "result_bytes", "dispatches",
-                             "chunks", "readbacks", "compile_events",
-                             "h2d_transfers", "cpu_rescued",
-                             "compact_events", "windows")}
+                             "compile_events", "h2d_transfers",
+                             "cpu_rescued", "compact_events", "windows")
+              + tuple(k for k in DRIVER_FIELDS if not k.endswith("_s"))}
     iters_all = []
     warm_seeded_it: list = []
     warm_cold_it: list = []
@@ -3002,7 +3006,14 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
                 phase_acc["stage_s"] += time.perf_counter() - t0
             return staged
 
-        sched.start(_elastic_solve, _elastic_stage)
+        # the straggler drill queues the round's groups before the
+        # workers start: placement then sees every group at once, so
+        # whether the straggler is left queued groups to steal does not
+        # hang on the host's LP assembly racing the device's solves
+        plan = faultinject.get_plan()
+        hold = plan is not None and plan.straggler
+        if not hold:
+            sched.start(_elastic_solve, _elastic_stage)
         try:
             while groups:
                 _, members = groups.popitem()
@@ -3012,6 +3023,8 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
                         _elastic.estimate_group_cost(k, its, cache),
                         affinity=cache.device_index_for(k))
             sched.close_submissions()
+            if hold:
+                sched.start(_elastic_solve, _elastic_stage)
             # scatter in SUBMISSION order, not completion order: apply
             # order drives the results surface's row order, and
             # completion order varies with device timing run to run.

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional
 
 from ..io.summary import run_health_report
 from ..ops.certify import aggregate_audits
+from ..ops.pdhg import DRIVER_FIELDS
 from ..results.result import Result
 from ..scenario.scenario import MicrogridScenario, run_dispatch
 from ..telemetry import trace as telemetry_trace
@@ -40,9 +41,11 @@ from .queue import (DeadlineExpiredError, QueuedRequest,
 # request's groups (a subset of the full ledger's totals: only what is
 # attributable to a single request — shared round-level walls stay under
 # ``round`` below)
-_SLICE_SUM_KEYS = ("solve_s", "stack_s", "h2d_s", "sync_wait_s",
-                   "result_fetch_s", "h2d_bytes", "result_bytes",
-                   "dispatches", "chunks", "compile_events")
+# with the solve driver's fields (chunks, check windows, their CUDA graphs
+# and status reads)
+_SLICE_SUM_KEYS = ("solve_s", "stack_s", "h2d_s", "result_fetch_s",
+                   "h2d_bytes", "result_bytes", "dispatches",
+                   "compile_events") + DRIVER_FIELDS
 
 
 def slice_request_ledger(ledger: Optional[Dict], request_id: str,

@@ -24,7 +24,12 @@ finalists and pinned samples, and the Monte-Carlo replay is byte-identical;
 the scenario service warms the card at start and serves two coalesced
 requests in one round on the banded kernel; a spawned fleet replica
 serves a request on cuda:0; the price sweep draws on the card, and a
-solve whose C, Q, L and U already lie there copies no bytes to it.
+solve whose C, Q, L and U already lie there copies no bytes to it; a
+solve whose check windows replay CUDA graphs is bit-equal to the eager
+window loop (``_Solver.run_chunk``) on the card, for both kernels and
+the plain chunk, with as many kernel launches (the warm-ups before the
+captures set apart), two threads on two streams capture and replay at
+once, and a dropped solver frees its graphs' memory.
 """
 import numpy as np
 import pytest
@@ -550,7 +555,8 @@ def test_two_elastic_workers_on_card_byte_identical(cuda, monkeypatch):
     """The elastic scheduler with two workers on cuda:0 (the device seam;
     each worker on a CUDA stream of its own, slot 1 a straggler) answers
     bit for bit as one worker does, and steals slot 1's queued group
-    (four months: three groups, of which slot 1 is placed two)."""
+    (four months: three groups, of which slot 1 is placed two; under the
+    straggler drill every group is placed before the workers start)."""
     from dervet_tpu_torch.api import DERVET
     from dervet_tpu_torch.parallel import elastic
     from dervet_tpu_torch.utils import faultinject
@@ -636,3 +642,170 @@ def test_device_resident_batch_moves_no_bytes(cuda):
     assert st.h2d_bytes == 0 and st.h2d_transfers == 0
     assert st.kernel_launches > 0 and bool(res.converged.all())
     assert res.x.device == cuda
+
+
+def solve_inputs(solver, C):
+    """``c, q, l, u`` of the batch priced by ``C`` on the solver's device,
+    as ``CompiledLPSolver.solve`` places them."""
+    lp, dev = solver.lp, solver.device
+    c = torch.tensor(C, dtype=torch.float32, device=dev)
+    q, l, u = (torch.tensor(a, dtype=torch.float32,
+                            device=dev).expand(c.shape[0], -1)
+               for a in (lp.q, lp.l, lp.u))
+    return c, q, l, u
+
+
+def functional_solve(solver, C):
+    """The chunk driver as it ran before the graph runner: the eager
+    functional window loop (``_Solver.run_chunk``, the uniform sub-block
+    form where it applies), one state read a chunk, and compaction to the
+    bucket grid, on the solver's device.  Returns the result and the
+    bucket occupancy."""
+    sv, op, dev = solver._solver, solver.op, solver.device
+    c, q, l, u = solve_inputs(solver, C)
+    const = (solver.dr, solver.dc)
+    full = cur_state = sv.init_state(op, c, q, l, u, *const)
+    idx, cur, total, occupancy = np.arange(c.shape[0]), (c, q, l, u), 0, []
+    opts = solver.opts
+    while True:
+        limit = min(total + opts.compact_chunk_iters, opts.max_iters)
+        cur_state = sv.run_chunk(op, *cur, *const, solver.eta, cur_state,
+                                 limit)
+        act = (~(cur_state.converged | cur_state.infeasible)).cpu().numpy()
+        total, n_active = int(cur_state.total.max()), int(act.sum())
+        if n_active == 0 or total >= opts.max_iters:
+            break
+        bucket = pdhg.compaction_bucket(n_active)
+        if bucket <= len(idx) // 2:
+            sel = np.nonzero(act)[0]
+            pad = torch.as_tensor(np.resize(sel, bucket), device=dev)
+            occupancy.append((bucket, int(np.unique(idx[sel]).size)))
+            full = pdhg._scatter(full, cur_state,
+                                 torch.as_tensor(idx, device=dev))
+            cur = tuple(a[pad] for a in cur)
+            cur_state = pdhg._index(cur_state, pad)
+            idx = idx[pad.cpu().numpy()]
+    full = pdhg._scatter(full, cur_state, torch.as_tensor(idx, device=dev))
+    return sv.finalize(op, c, q, l, u, *const, full), occupancy
+
+
+def _graph_case(cuda, kind, monkeypatch):
+    """A straggler batch (16 instances, a third priced far up, short host
+    chunks) on the card: ``kind`` 'banded_wide' (banded kernel), 'dense'
+    (dense kernel) or 'ell_residual' (the daily-cycle LP with its wide
+    rows in an ELL residual: the plain chunk)."""
+    kw = dict(compact_chunk_iters=256, cpu_rescue_after=None,
+              max_iters=16384)
+    if kind == "ell_residual":
+        monkeypatch.setattr(pdhg, "WIDE_MAX_ROWS", 0)
+        kw["dense_bytes_limit"] = 0
+    lp = LPS["banded_wide" if kind == "ell_residual" else kind](
+        port_lp.LPBuilder)
+    solver = pdhg.CompiledLPSolver(lp, pdhg.PDHGOptions(**kw), device=cuda)
+    C = price_batch(lp, 16, seed=4)
+    C[::3] *= np.linspace(20, 60, lp.n)[None]
+    return solver, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["banded_wide", "dense", "ell_residual"])
+def test_graph_solve_equals_eager_on_card(cuda, kind, monkeypatch):
+    """Every check window a CUDA-graph replay: two solves (the second, of
+    other prices, replaying the first's graphs and capturing none)
+    bit-equal to the eager window loop on the card, with the same
+    compactions, a status read after each window, and as many kernel
+    launches once the warm-ups before the captures are set apart."""
+    solver, C = _graph_case(cuda, kind, monkeypatch)
+    assert solver._solver.use_kernel == (kind != "ell_residual")
+    for rep, prices in enumerate((C, C[::-1].copy())):
+        fused_chunk.reset_launch_counts()
+        ref, occupancy = functional_solve(solver, prices)
+        torch.cuda.synchronize()
+        eager_launches = sum(fused_chunk.LAUNCHES.values())
+        st = pdhg.SolveStats()
+        fused_chunk.reset_launch_counts()
+        res = solver.solve(c=prices, stats=st)
+        torch.cuda.synchronize()
+        for f in pdhg.PDHGResult._fields:
+            assert torch.equal(getattr(res, f), getattr(ref, f)), (rep, f)
+        assert st.bucket_occupancy == occupancy
+        assert st.check_windows == st.graph_replays > 0
+        assert st.readbacks == st.check_windows + st.chunks
+        assert sum(fused_chunk.LAUNCHES.values()) == st.kernel_launches
+        assert st.kernel_launches - st.warmup_launches == eager_launches
+        if kind != "ell_residual":
+            assert eager_launches > 0
+        if rep == 0:
+            # one graph a (batch width, sub-block count): widths 16 and 8,
+            # counts 1, 2 and 4
+            assert 1 <= st.graph_captures <= 2 * 3 and st.capture_s > 0
+        else:
+            assert st.graph_captures == st.warmup_launches == 0
+
+
+@pytest.mark.cuda
+def test_two_threads_capture_at_once(cuda, monkeypatch):
+    """Two solvers solve from two threads at once, each thread on a
+    CUDA stream of its own on cuda:0 (the elastic workers' case), each
+    capturing its first windows while the other launches work (the
+    captures take turns on the device's capture stream); each answer
+    equals the eager window loop's."""
+    import threading
+    cases = [_graph_case(cuda, k, monkeypatch) for k in ("banded_wide",
+                                                         "dense")]
+    refs = [functional_solve(solver, C)[0] for solver, C in cases]
+    gate, outs, errors = threading.Barrier(2), {}, []
+
+    def run(i):
+        solver, C = cases[i]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                gate.wait(timeout=60)
+                st = pdhg.SolveStats()
+                outs[i] = solver.solve(c=C, stats=st), st
+                torch.cuda.synchronize()
+        except Exception as e:      # the assertion below reports it
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for i, ref in enumerate(refs):
+        res, st = outs[i]
+        assert st.graph_captures >= 1 and st.graph_replays == st.check_windows
+        for f in pdhg.PDHGResult._fields:
+            assert torch.equal(getattr(res, f), getattr(ref, f)), (i, f)
+
+
+@pytest.mark.cuda
+def test_dropped_solver_frees_its_graphs(cuda, monkeypatch):
+    """A solver's runners, their buffers and its graph pool go with it:
+    after it is dropped the card holds what it held before.  A first
+    solver, dropped before the count, gives this thread's capture stream
+    its cuBLAS workspace, which lives as long as the process."""
+    import gc
+
+    def solve_and_drop():
+        solver, C = _graph_case(cuda, "dense", monkeypatch)
+        st = pdhg.SolveStats()
+        solver.solve(c=C, stats=st)
+        torch.cuda.synchronize()
+        assert st.graph_captures >= 1
+        return torch.cuda.memory_allocated(cuda)
+
+    solve_and_drop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated(cuda)
+    reserved0 = torch.cuda.memory_reserved(cuda)
+    held = solve_and_drop()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert held > alloc0
+    assert torch.cuda.memory_allocated(cuda) == alloc0
+    assert torch.cuda.memory_reserved(cuda) <= reserved0
