@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 from .io.params import CaseParams, Params
 from .scenario.scenario import MicrogridScenario
+from .telemetry import trace as telemetry_trace
 from .utils.errors import TellUser
 
 
@@ -103,8 +104,39 @@ class DERVET:
     # 96 on.  Explicit backend="torch"/"cpu" is always honored.
     AUTO_TORCH_MIN_WINDOWS = 96
 
+    # Result.phase_seconds keys that are plain sums over the phases of
+    # one call (prep_s adds init_seconds to its sum)
+    PHASE_KEYS = ("dispatch_s", "post_s", "dispatch_assembly_s",
+                  "dispatch_solve_s", "dispatch_stage_s", "certify_s",
+                  "escalate_s", "solver_setup_s", "outage_walk_s",
+                  "post_work_s")
+
     def solve(self, backend: str = "auto", solver_opts=None,
               checkpoint_dir=None, request_id=None, device=None):
+        """Solve every case; returns the :class:`Result` registry.
+
+        The call is one ``valuation`` phase tree (``telemetry.trace``):
+        ``results.phase_seconds`` holds its per-phase sums, and
+        ``results.trace`` its spans when telemetry records (write them
+        with ``telemetry.trace.export_chrome_trace(results.trace, path)``).
+        """
+        with telemetry_trace.phase("valuation", root=True,
+                                   cases=len(self.cases)) as run:
+            results = self._solve(run, backend, solver_opts,
+                                  checkpoint_dir, request_id, device)
+        results.trace = run.trace
+        sums = run.totals
+        # params load (init) + this call's case prep; the rest as summed
+        # over the call's phases, cumulative across threads
+        results.phase_seconds = {
+            "prep_s": round(self.init_seconds + sums.get("prep_s", 0.0), 3),
+            **{k: round(sums.get(k, 0.0), 3) for k in self.PHASE_KEYS}}
+        TellUser.info(f"DERVET runtime: "
+                      f"{self.init_seconds + run.elapsed:.2f} s")
+        return results
+
+    def _solve(self, run, backend, solver_opts, checkpoint_dir, request_id,
+               device):
         from .results.result import Result
         if self.verbose:
             from .io.summary import class_summary
@@ -119,21 +151,21 @@ class DERVET:
         # single device calls (replaces the reference's serial per-case
         # loop, dervet/DERVET.py:75-83)
         from .scenario.scenario import run_dispatch
-        t_prep = time.time()
-        scenarios = {}
-        for key, case in self.cases.items():
-            TellUser.info(f"Preparing case {key}...")
-            scenarios[key] = MicrogridScenario(case)
-        if backend == "auto":
-            total = sum(len(s.windows) for s in scenarios.values())
-            backend = ("torch" if total >= self.AUTO_TORCH_MIN_WINDOWS
-                       else "cpu")
-            TellUser.info(
-                f"backend=auto: {total} window-LPs across "
-                f"{len(scenarios)} case(s) -> {backend!r} "
-                f"(threshold {self.AUTO_TORCH_MIN_WINDOWS}; pass "
-                "backend='torch'/'cpu' to force)")
-        t_solve = time.time()
+        with telemetry_trace.phase("prep", "prep_s", cases=len(self.cases)):
+            scenarios = {}
+            for key, case in self.cases.items():
+                TellUser.info(f"Preparing case {key}...")
+                scenarios[key] = MicrogridScenario(case)
+            if backend == "auto":
+                total = sum(len(s.windows) for s in scenarios.values())
+                backend = ("torch" if total >= self.AUTO_TORCH_MIN_WINDOWS
+                           else "cpu")
+                TellUser.info(
+                    f"backend=auto: {total} window-LPs across "
+                    f"{len(scenarios)} case(s) -> {backend!r} "
+                    f"(threshold {self.AUTO_TORCH_MIN_WINDOWS}; pass "
+                    "backend='torch'/'cpu' to force)")
+        run.set_attr("backend", backend)
         # preemption-safe sweep (utils.supervisor): SIGTERM/SIGINT sets a
         # stop flag honored at window-batch boundaries — checkpoints and
         # the sweep-level run_manifest.json flush before PreemptedError
@@ -166,8 +198,10 @@ class DERVET:
         def on_case_solved(scenario):
             scenario._scatter_to_ders(scenario._solution)
             scenario._scattered = True
+            # the post pool's threads have no ambient phase: the case's
+            # post parents under the run's root
             post_futs[key_of[id(scenario)]] = post_pool.submit(
-                results.build_instance, scenario)
+                results.build_instance, scenario, run)
 
         try:
             with RunSupervisor() as sup:
@@ -182,9 +216,17 @@ class DERVET:
             if post_pool is not None:
                 post_pool.shutdown(wait=True, cancel_futures=True)
             raise
-        t_post = time.time()
         TellUser.debug(f"dispatch ({len(scenarios)} case(s)): "
-                       f"{t_post - t_solve:.2f}s")
+                       f"{run.totals.get('dispatch_s', 0.0):.2f}s")
+        with telemetry_trace.phase("post", "post_s"):
+            self._post(run, results, scenarios, post_futs, post_pool)
+        return results
+
+    def _post(self, run, results, scenarios, post_futs, post_pool) -> None:
+        """Everything after the dispatch: the run-health report, the
+        cases' results (those the dispatch did not hand to the post pool
+        already), the invariant audit, the sensitivity summary and the
+        solve ledger."""
         # run-health report (resilience layer): per-window ladder counts
         # aggregated over the sweep, logged AND attached to the results so
         # save_as_csv persists it next to the output set.  Quarantined
@@ -208,7 +250,7 @@ class DERVET:
             if scenario.quarantine is None and key not in post_futs \
                     and post_pool is not None:
                 post_futs[key] = post_pool.submit(results.build_instance,
-                                                  scenario)
+                                                  scenario, run)
         try:
             for key, scenario in scenarios.items():
                 if scenario.quarantine is not None:
@@ -240,29 +282,11 @@ class DERVET:
                 f"{sorted(audit['failing'])} — see run_health.json "
                 "invariant_audit for the violated checks")
         results.sensitivity_summary()
-        done = time.time()
-        # phase split observable (VERDICT r5 #1): params+case prep /
-        # dispatch (host assembly + device solve; run_dispatch's own
-        # metadata splits those further) / pandas post-processing
-        results.phase_seconds = {
-            # params load (init) + this call's case prep — anchored to
-            # t_prep, not start_time, so a reused DERVET object's second
-            # solve() doesn't bill the gap/first run to prep (review r5)
-            "prep_s": round(self.init_seconds + (t_solve - t_prep), 3),
-            "dispatch_s": round(t_post - t_solve, 3),
-            "post_s": round(done - t_post, 3),
-        }
         if scenarios:
-            # dispatch-global totals are recorded on every case; take one
-            s0 = next(iter(scenarios.values()))
-            for k in ("dispatch_assembly_s", "dispatch_solve_s",
-                      "dispatch_stage_s"):
-                v = s0.solve_metadata.get(k)
-                if v is not None:
-                    results.phase_seconds[k] = v
             # the per-group solve ledger (VERDICT r5 #1): the solve
             # phase decomposed into named device-traffic line items,
             # published by bench.py under legs.*.solve_ledger
+            s0 = next(iter(scenarios.values()))
             results.solve_ledger = s0.solve_metadata.get("solve_ledger")
             if isinstance(results.solve_ledger, dict):
                 # provenance stamp, mirrored in run_health: the
@@ -271,5 +295,3 @@ class DERVET:
                 from .ops.pdhg import SOLVER_VERSION
                 results.solve_ledger.setdefault("solver_version",
                                                 str(SOLVER_VERSION))
-        TellUser.info(f"DERVET runtime: {done - self.start_time:.2f} s")
-        return results

@@ -33,6 +33,7 @@ import torch
 
 from ...device import resolve_device
 from ...ops.lp import LPBuilder
+from ...telemetry import trace as telemetry_trace
 from ...scenario.window import WindowContext, grab_column
 from ...utils.errors import TellUser, TimeseriesDataError
 from .base import SystemRequirement, ValueStream
@@ -326,10 +327,16 @@ class Reliability(ValueStream):
                 shed[k:] = self.load_shed_data[-1] / 100.0
         return shed
 
-    def _walk(self, mix, init_soe: np.ndarray, L: int):
+    def _walk(self, mix, init_soe: np.ndarray, L: int, stage: str):
+        """Every outage start's walk of ``L`` steps, as one
+        ``outage_walk`` phase; ``stage`` names the caller (``sizing``,
+        ``requirements`` or ``coverage``)."""
         p = mix["props"]
         dev = resolve_device(self.device)
-        with _side_stream(dev):
+        with telemetry_trace.phase("outage_walk", "outage_walk_s",
+                                   stage=stage, L=int(L),
+                                   starts=len(init_soe)), \
+                _side_stream(dev):
             cov, prof = simulate_all_outages(
                 self.critical_load.to_numpy(), mix["gen"], mix["pv_max"],
                 mix["pv_vari"], mix["gamma"], self._shed_curve(L), init_soe,
@@ -359,7 +366,7 @@ class Reliability(ValueStream):
             mix = self._der_mix(ders)
             p = mix["props"]
             init = np.full(T, self.soc_init * p["energy rating"])
-            cov, _ = self._walk(mix, init, L)
+            cov, _ = self._walk(mix, init, L, "sizing")
             cov = np.minimum(cov, T - np.arange(T))
             uncovered = np.nonzero((cov < L) & (cov < (T - np.arange(T))))[0]
             if not len(uncovered):
@@ -552,7 +559,7 @@ class Reliability(ValueStream):
                 {"soe": np.minimum(req, p["soe max"])}, index=index)
             return self.min_soe_df
         init = np.full(len(index), self.soc_init * p["energy rating"])
-        cov, prof = self._walk(mix, init, L)
+        cov, prof = self._walk(mix, init, L, "requirements")
         # profile incl. the initial soe at the front
         full = np.concatenate([init[:, None], prof], axis=1)
         # dead steps are zero-filled; effective swing over surviving steps
@@ -619,7 +626,7 @@ class Reliability(ValueStream):
                 init = np.full(T, self.soc_init * p["energy rating"])
         else:
             init = np.zeros(T)
-        cov, prof = self._walk(mix, init, L)
+        cov, prof = self._walk(mix, init, L, "coverage")
         # cap coverage at steps remaining in the horizon
         cov = np.minimum(cov, T - np.arange(T))
         freq = np.bincount(cov.astype(int), minlength=L + 1)

@@ -48,6 +48,7 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
+from ..telemetry import trace as telemetry_trace
 from . import fused_chunk
 from .lp import LP
 
@@ -1305,31 +1306,35 @@ class _WindowRunner:
         which depends on the batch width).  The capture is thread-local,
         since other threads launch work on the card meanwhile; a failure
         raises.  ``capture_s`` is host time, the wait for the lock
-        included."""
-        t0 = time.perf_counter()
-        dev = self.status.device
-        cur = torch.cuda.current_stream(dev)
-        launches0 = self.sv.launches
-        with _capture_lock:
-            side = _capture_stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.device(dev), torch.cuda.stream(side):
-                if threading.get_ident() not in self.sv.warm_threads:
-                    self.sv.window(self.op, self.ctx, self.state, self.eta,
-                                   self.dr, self.dc, self.limit, 1)
-                    self.sv.warm_threads.add(threading.get_ident())
-                graph = torch.cuda.CUDAGraph()
-                with fused_chunk.recording() as tally:
-                    graph.capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        self._window(n_max)
-                    finally:
-                        graph.capture_end()
-            cur.wait_stream(side)
+        included: the ``graph_capture`` phase's."""
+        with telemetry_trace.phase("graph_capture", "solver_setup_s",
+                                   bucket=int(self.inputs[0].shape[0]),
+                                   window=n_max) as cap:
+            dev = self.status.device
+            cur = torch.cuda.current_stream(dev)
+            launches0 = self.sv.launches
+            with _capture_lock:
+                side = _capture_stream(dev)
+                side.wait_stream(cur)
+                with torch.cuda.device(dev), torch.cuda.stream(side):
+                    if threading.get_ident() not in self.sv.warm_threads:
+                        self.sv.window(self.op, self.ctx, self.state,
+                                       self.eta, self.dr, self.dc,
+                                       self.limit, 1)
+                        self.sv.warm_threads.add(threading.get_ident())
+                    graph = torch.cuda.CUDAGraph()
+                    with fused_chunk.recording() as tally:
+                        graph.capture_begin(
+                            pool=self.pool,
+                            capture_error_mode="thread_local")
+                        try:
+                            self._window(n_max)
+                        finally:
+                            graph.capture_end()
+                cur.wait_stream(side)
         stats.warmup_launches += self.sv.launches - launches0
         stats.graph_captures += 1
-        stats.capture_s += time.perf_counter() - t0
+        stats.capture_s += cap.elapsed
         return _Graph(graph, dict(tally))
 
 
@@ -1605,17 +1610,21 @@ class CompiledLPSolver:
                 bucket = compaction_bucket(n_active)
                 if bucket <= len(idx) // 2:
                     sel = np.nonzero(st.unfinished)[0]
-                    pad = np.resize(sel, bucket)  # pad by repeating survivors
-                    stats.compact_events += 1
-                    stats.dispatches += 1
-                    stats.bucket_occupancy.append(
-                        (int(bucket), int(np.unique(idx[sel]).size)))
-                    dev_idx = torch.as_tensor(idx, device=self.device)
-                    dev_pad = torch.as_tensor(pad, device=self.device)
-                    full_state = _scatter(full_state, cur_state, dev_idx)
-                    cur = tuple(a[dev_pad] for a in cur)
-                    cur_state = _index(cur_state, dev_pad)
-                    idx = idx[pad]
+                    with telemetry_trace.phase("compact", bucket=int(bucket),
+                                               survivors=int(sel.size)):
+                        # pad by repeating survivors
+                        pad = np.resize(sel, bucket)
+                        stats.compact_events += 1
+                        stats.dispatches += 1
+                        stats.bucket_occupancy.append(
+                            (int(bucket), int(np.unique(idx[sel]).size)))
+                        dev_idx = torch.as_tensor(idx, device=self.device)
+                        dev_pad = torch.as_tensor(pad, device=self.device)
+                        full_state = _scatter(full_state, cur_state,
+                                              dev_idx)
+                        cur = tuple(a[dev_pad] for a in cur)
+                        cur_state = _index(cur_state, dev_pad)
+                        idx = idx[pad]
             full_state = _scatter(full_state, cur_state,
                                   torch.as_tensor(idx, device=self.device))
             full_state = self._cpu_rescue(full_state, c, q, l, u, total,

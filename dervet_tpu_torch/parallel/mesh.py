@@ -31,6 +31,7 @@ import torch
 
 from ..ops.pdhg import (DRIVER_FIELDS, CompiledLPSolver, PDHGResult,
                         SolveStats)
+from ..telemetry import trace as telemetry_trace
 from . import elastic
 
 
@@ -150,9 +151,13 @@ def solve_batch_sharded(solver: CompiledLPSolver, devices,
         streams = [torch.cuda.current_stream(s.device)
                    if s.device.type == "cuda" else None for s in shards]
 
+        # the shards' threads capture and compact inside the caller's phase
+        parent = telemetry_trace.current()
+
         def on(i, fn):
             with (torch.cuda.stream(streams[i]) if streams[i] is not None
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), \
+                    telemetry_trace.ambient(parent):
                 return fn()
 
         def args(i):

@@ -10,11 +10,12 @@ payback, cost_benefit) are attached by the CBA layer.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import pandas as pd
 
+from ..telemetry import trace as telemetry_trace
 from ..utils.errors import TellUser
 
 
@@ -56,16 +57,24 @@ class Result:
         # answer (see resubmit_hint)
         self.fidelity: str = "certified"
         self.resubmit_hint: Optional[str] = None
+        # per-phase seconds and the recorded spans of the solve() call
+        # that built these results (telemetry.trace phases)
+        self.phase_seconds: Dict[str, float] = {}
+        self.trace: List[Dict] = []
 
-    def build_instance(self, scenario) -> "CaseResult":
+    def build_instance(self, scenario, parent=None) -> "CaseResult":
         """Build (but do not register) one case's result frames — the
         pandas-heavy half of ``add_instance``, split out so the api layer
         can fan it out over a worker pool overlapped with the remaining
         dispatch solves (cases are independent; registration stays on the
-        caller's thread, in case order)."""
-        inst = CaseResult(scenario, self.csv_label)
-        inst.collect_results()
-        inst.calculate_cba()
+        caller's thread, in case order).  ``parent`` is the phase the
+        case's ``post_case`` phase records under (default: the calling
+        thread's)."""
+        with telemetry_trace.phase("post_case", "post_work_s", parent=parent,
+                                   case=scenario.case.case_id):
+            inst = CaseResult(scenario, self.csv_label)
+            inst.collect_results()
+            inst.calculate_cba()
         return inst
 
     def add_instance(self, key: int, scenario) -> "CaseResult":

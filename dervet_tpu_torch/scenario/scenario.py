@@ -401,7 +401,6 @@ class MicrogridScenario:
         the dispatch device (see :meth:`place_walks`)."""
         self.place_walks(backend, device)
         self.sizing_module()
-        self._t0 = time.time()
         self._backend = backend
         self._solver_opts = solver_opts
         self._checkpoint_dir = checkpoint_dir
@@ -517,7 +516,6 @@ class MicrogridScenario:
         if deferral is not None and deferral.deferral_df is None:
             deferral.deferral_analysis(self.ders, self.opt_years,
                                        self.end_year)
-        self._t0 = time.time()
         self._backend = backend
         self._solver_opts = solver_opts
         self._checkpoint_dir = checkpoint_dir
@@ -666,10 +664,6 @@ class MicrogridScenario:
                                              len(self.windows) - counted)
         self.solve_metadata.update({
             "backend": self._backend,
-            # wall-clock of the WHOLE batched dispatch this case rode in —
-            # co-batched cases share device calls, so a per-case split of
-            # solve time is not well-defined
-            "solve_seconds": time.time() - self._t0,
             "batched_solves": self._n_solves,
             "n_windows": len(self.windows),
             "health": dict(self.health),
@@ -1039,27 +1033,9 @@ class SolverCache:
         with self._lock:
             solver = self.solvers.get(key)
             if solver is None:
-                from ..ops.pdhg import CompiledLPSolver, PDHGOptions
-                opts = solver_opts or PDHGOptions()
-                # escalation retries key as ("retry", base_key): clone the
-                # base structure's solver (shared preconditioning, new
-                # runtime budget) instead of re-preconditioning
-                base = (self.solvers.get(key[1])
-                        if isinstance(key, tuple) and len(key) == 2
-                        and key[0] == "retry" else None)
-                if base is not None:
-                    solver = base.with_options(opts)
-                else:
-                    donor = self._donor(key)
-                    if donor is not None:
-                        # a sibling shard (or the root) already
-                        # preconditioned this structure: copy its
-                        # operator instead of re-running Ruiz + the
-                        # power iteration
-                        solver = donor.to_device(self.device)
-                    else:
-                        solver = CompiledLPSolver(lp0, opts,
-                                                  device=self.device)
+                with telemetry_trace.phase("solver_build",
+                                           "solver_setup_s") as bld:
+                    solver = self._build(key, lp0, solver_opts, bld)
                 self.solvers[key] = solver
                 self.builds += 1
                 self._mirror(key, built=True)
@@ -1067,6 +1043,30 @@ class SolverCache:
                 self.hits += 1
                 self._mirror(key, built=False)
         return solver
+
+    def _build(self, key, lp0: LP, solver_opts, bld):
+        """A new solver for ``key`` (under the lock); ``bld`` is its
+        ``solver_build`` phase, told which kind of build it was."""
+        from ..ops.pdhg import CompiledLPSolver, PDHGOptions
+        opts = solver_opts or PDHGOptions()
+        # escalation retries key as ("retry", base_key): clone the base
+        # structure's solver (shared preconditioning, new runtime budget)
+        # instead of re-preconditioning
+        base = (self.solvers.get(key[1])
+                if isinstance(key, tuple) and len(key) == 2
+                and key[0] == "retry" else None)
+        if base is not None:
+            bld.set_attr("kind", "retry_clone")
+            return base.with_options(opts)
+        donor = self._donor(key)
+        if donor is not None:
+            # a sibling shard (or the root) already preconditioned this
+            # structure: copy its operator instead of re-running Ruiz +
+            # the power iteration
+            bld.set_attr("kind", "donor")
+            return donor.to_device(self.device)
+        bld.set_attr("kind", "new")
+        return CompiledLPSolver(lp0, opts, device=self.device)
 
     # -- elastic per-device shards (parallel/elastic.py) ---------------
     def shard_for(self, device, index: int) -> "SolverCache":
@@ -1923,8 +1923,15 @@ def _guarded_solve(watchdog, rung_desc: str, lps, labels, call):
     from ..ops.pdhg import STATUS_ITER_LIMIT
     if watchdog is None:
         return call(), False
+    parent = telemetry_trace.current()
+
+    def _call():
+        # the watchdog's thread solves inside the caller's phase
+        with telemetry_trace.ambient(parent):
+            return call()
+
     result, timed_out = watchdog.call(
-        call, f"{rung_desc} solve of window(s) {labels}")
+        _call, f"{rung_desc} solve of window(s) {labels}")
     if not timed_out:
         return result, False
     n = len(lps)
@@ -1937,7 +1944,8 @@ def _guarded_solve(watchdog, rung_desc: str, lps, labels, call):
 def resolve_group(items, backend: str, solver_opts, key=None,
                   cache: Optional[SolverCache] = None, watchdog=None,
                   staged: Optional[StagedGroupData] = None, ledger=None,
-                  board=None, policy=None, device=None, ledger_tags=None):
+                  board=None, policy=None, device=None, ledger_tags=None,
+                  parent=None):
     """Solve a window group with the per-window escalation ladder.
 
     ``items`` is a list of ``(scenario, ctx, lp)`` (structure-identical
@@ -1963,7 +1971,21 @@ def resolve_group(items, backend: str, solver_opts, key=None,
     verdicts are recorded under ``certify``, and ``_escalate`` consults/
     records the ``retry_rung`` / ``cpu_rung`` breakers — a rung whose
     recent failure rate tripped its breaker is skipped (the members fall
-    through to the next healthy rung) until a half-open probe succeeds."""
+    through to the next healthy rung) until a half-open probe succeeds.
+
+    The whole call is one ``dispatch_group`` phase (``telemetry.trace``)
+    under ``parent`` (default: the calling thread's phase), with the
+    certification and the ladder's rungs as phases below it."""
+    with telemetry_trace.phase("dispatch_group", "dispatch_solve_s",
+                               parent=parent) as grp:
+        return _resolve_group(grp, items, backend, solver_opts, key, cache,
+                              watchdog, staged, ledger, board, policy,
+                              device, ledger_tags)
+
+
+def _resolve_group(grp, items, backend, solver_opts, key, cache, watchdog,
+                   staged, ledger, board, policy, device, ledger_tags):
+    """:func:`resolve_group`'s body, inside its ``grp`` phase."""
     from ..ops.pdhg import STATUS_CONVERGED, STATUS_INACCURATE, \
         STATUS_ITER_LIMIT, PDHGOptions
     lps = [lp for (_, _, lp) in items]
@@ -1971,6 +1993,7 @@ def resolve_group(items, backend: str, solver_opts, key=None,
     meta = {"rung": "initial", "T": getattr(items[0][1], "T", None),
             "windows": len(items),
             "cases": len({id(s) for (s, _, _) in items})}
+    grp.set_attrs(meta)
     # caller tags copied onto the group's ledger entries
     if ledger_tags:
         meta.update(ledger_tags)
@@ -2058,51 +2081,52 @@ def resolve_group(items, backend: str, solver_opts, key=None,
         # only fires on solver STATUS, so a wrong-but-"OPTIMAL" solution
         # would otherwise never be retried
         cert_rejected: set = set()
-        _t_cert_wall, _t_cert_mono = time.time(), time.monotonic()
-        _n_certified = 0
         if policy.enabled:
-            ys = y_box.get("y") if y_box else None
-            if ys is not None and np.ndim(ys) == 1:
-                ys = ys[None]
-            for i, (s, ctx, lp) in enumerate(items):
-                if not ok[i] or (lp.integrality is not None
-                                 and backend != "cpu"):
-                    # binary relaxations on an accelerated backend are
-                    # provisional — apply_subgroup certifies their FINAL x
-                    continue
-                cert = _certify_and_record(
-                    s, ctx.label, lp, xs[i], objs[i], policy,
-                    y=(ys[i] if ys is not None else None))
-                _n_certified += 1
-                if board is not None:
-                    board.record("certify", cert.accepted)
-                if not cert.accepted:
-                    ok[i] = False
-                    cert_rejected.add(i)
-                    diags[i] = f"{certify.REJECT_DIAG_PREFIX} {cert.reason}"
-                    # drop any warm-start memory entry for this exact data:
-                    # a rejected solution the memory vouched for would be
-                    # re-substituted, re-rejected, and re-escalated on every
-                    # repeat request otherwise
-                    mem = getattr(cache, "memory", None) \
-                        if cache is not None else None
-                    if mem is not None and key is not None:
-                        mem.invalidate(key, lp, np.dtype(
-                            (solver_opts or PDHGOptions()).dtype))
-                    TellUser.warning(
-                        f"window {ctx.label}: solver-accepted solution "
-                        f"REJECTED by the float64 certifier ({cert.reason}); "
-                        "escalating")
-        if _tspans and policy.enabled and _n_certified:
-            # retro certify span: the float64 certification pass this group
-            # just ran, as a timed child of each request's group span
-            _cert_dur = time.monotonic() - _t_cert_mono
-            for _sp in _tspans:
-                telemetry_trace.start_span(
-                    "certify", parent=_sp, t_start=_t_cert_wall,
-                    duration_s=_cert_dur,
-                    attrs={"checked": _n_certified,
-                           "rejected": len(cert_rejected)})
+            # the pass is a child of the group phase and, in each request
+            # that rode the group, of that request's group span
+            with telemetry_trace.phase("certify", "certify_s",
+                                       mirrors=_tspans) as cph:
+                ys = y_box.get("y") if y_box else None
+                if ys is not None and np.ndim(ys) == 1:
+                    ys = ys[None]
+                n_certified = 0
+                for i, (s, ctx, lp) in enumerate(items):
+                    if not ok[i] or (lp.integrality is not None
+                                     and backend != "cpu"):
+                        # binary relaxations on an accelerated backend
+                        # are provisional — apply_subgroup certifies
+                        # their FINAL x
+                        continue
+                    cert = _certify_and_record(
+                        s, ctx.label, lp, xs[i], objs[i], policy,
+                        y=(ys[i] if ys is not None else None))
+                    n_certified += 1
+                    if board is not None:
+                        board.record("certify", cert.accepted)
+                    if not cert.accepted:
+                        ok[i] = False
+                        cert_rejected.add(i)
+                        diags[i] = (f"{certify.REJECT_DIAG_PREFIX} "
+                                    f"{cert.reason}")
+                        # drop any warm-start memory entry for this exact
+                        # data: a rejected solution the memory vouched for
+                        # would be re-substituted, re-rejected, and
+                        # re-escalated on every repeat request otherwise
+                        mem = getattr(cache, "memory", None) \
+                            if cache is not None else None
+                        if mem is not None and key is not None:
+                            mem.invalidate(key, lp, np.dtype(
+                                (solver_opts or PDHGOptions()).dtype))
+                        TellUser.warning(
+                            f"window {ctx.label}: solver-accepted solution "
+                            "REJECTED by the float64 certifier "
+                            f"({cert.reason}); escalating")
+                cph.set_attrs({"checked": n_certified,
+                               "rejected": len(cert_rejected)})
+                if not n_certified:
+                    cph.mirrors = ()
+        grp.set_attr("cert_rejected", len(cert_rejected))
+        retried = cpu_fallback = 0
         fail_idx = [i for i in range(len(items)) if not ok[i]]
         with _health_lock:
             for i, (s, ctx, lp) in enumerate(items):
@@ -2120,11 +2144,12 @@ def resolve_group(items, backend: str, solver_opts, key=None,
                 _sp.event("escalate", failed=len(fail_idx),
                           cert_rejected=len(cert_rejected),
                           timed_out=bool(timed_out))
-            _escalate(items, fail_idx, xs, objs, ok, diags, statuses,
-                      backend, solver_opts, key, cache, watchdog, ledger=ledger,
-                      policy=policy, cert_rejected=cert_rejected, board=board,
-                      iterate_sink=iterate_sink, device=device,
-                      ledger_tags=ledger_tags)
+            retried, cpu_fallback = _escalate(
+                items, fail_idx, xs, objs, ok, diags, statuses, backend,
+                solver_opts, key, cache, watchdog, ledger=ledger,
+                policy=policy, cert_rejected=cert_rejected, board=board,
+                iterate_sink=iterate_sink, device=device,
+                ledger_tags=ledger_tags)
             for _sp in _tspans:
                 _sp.event("escalation_done",
                           recovered=sum(1 for i in fail_idx if ok[i]),
@@ -2148,13 +2173,19 @@ def resolve_group(items, backend: str, solver_opts, key=None,
                 if ok[i] and lp.integrality is None and \
                         ctx.label in getattr(s, "_shadow_labels", ()):
                     _shadow_solve(s, ctx.label, lp, objs[i], policy)
+        _entry = (local_ledger[0]
+                  if local_ledger and not timed_out else None)
+        if grp and _entry is not None:
+            # the ledger entry (kernel, batch, iterations, ...) rides the
+            # group's span as it rides each request's
+            grp.set_attrs(_span_attrs_from_entry(_entry))
+        # the windows recovered on each rung, as run_health counts them
+        grp.set_attrs({"retried": retried, "cpu_fallback": cpu_fallback})
         if _tspans:
             # the ledger entry IS the span attribute payload (tentpole's
             # reuse contract) — minus the private per-window arrays; a
             # watchdog-abandoned solve merged no entry, so the span keeps
             # its construction-time attrs and an error status instead
-            _entry = (local_ledger[0]
-                      if local_ledger and not timed_out else None)
             _attrs = _span_attrs_from_entry(_entry) if _entry else {}
             _err = ("watchdog timeout" if timed_out else None)
             for _sp in _tspans:
@@ -2190,9 +2221,10 @@ def _span_attrs_from_entry(entry: Dict) -> Dict:
 def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
               solver_opts, key, cache, watchdog=None, ledger=None,
               policy=None, cert_rejected=None, board=None,
-              iterate_sink=None, device=None, ledger_tags=None) -> None:
+              iterate_sink=None, device=None, ledger_tags=None) -> tuple:
     """Escalation ladder for a group's failed members (mutates the result
-    lists in place).
+    lists in place).  Returns ``(retried, cpu_fallback)``: the members
+    recovered on each rung, as the run-health report counts them.
 
     Rung 1 — boosted-budget retry: members whose exit was NOT a certified
     infeasibility re-solve with ``LADDER_ITER_BOOST``x ``max_iters`` and a
@@ -2218,18 +2250,19 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
     a rung's solution that fails the float64 certificate keeps climbing
     — retry to CPU fallback, CPU fallback to quarantine — and members in
     ``cert_rejected`` (rejected by the initial certificate) count a
-    ``rejected_then_recovered`` when a later rung's certificate passes."""
-    from ..ops.pdhg import STATUS_ITER_LIMIT, STATUS_PRIMAL_INFEASIBLE, \
-        PDHGOptions
-    import dataclasses
+    ``rejected_then_recovered`` when a later rung's certificate passes.
+
+    Each rung is one ``escalate`` phase (``telemetry.trace``) with its
+    re-certification as one ``certify`` phase inside; the ladder's wall
+    time (``health["retry_seconds"]``) is the rungs' sum."""
+    from ..ops.pdhg import STATUS_PRIMAL_INFEASIBLE
     plan = faultinject.get_plan()
     policy = policy if policy is not None else certify.policy_from_env()
     cert_rejected = cert_rejected if cert_rejected is not None else set()
-    t0 = time.perf_counter()
     fail_idx = [i for i in fail_idx
                 if backend == "cpu" or items[i][2].integrality is None]
     if not fail_idx:
-        return
+        return 0, 0
     if backend == "cpu" and plan is None and \
             not any(str(diags[i]).startswith(
                 ("watchdog", certify.REJECT_DIAG_PREFIX))
@@ -2244,7 +2277,9 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
         # deadline.  Certificate rejections are the other: the threat
         # model is corrupted DATA HANDLING (a staging race, a scrambled
         # readback), which a re-solve can absolutely recover from.
-        return
+        return 0, 0
+    retried = cpu_fallback = 0
+    ladder_s = 0.0
     # ---- rung 1: boosted-budget retry of the failed members only ----
     retry_idx = [i for i in fail_idx
                  if statuses[i] != STATUS_PRIMAL_INFEASIBLE]
@@ -2258,80 +2293,139 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
             "straight to the exact CPU fallback")
         retry_idx = []
     if retry_idx:
-        base = solver_opts or PDHGOptions()
-        boosted = dataclasses.replace(
-            base, max_iters=base.max_iters * LADDER_ITER_BOOST,
-            inaccurate_factor=base.inaccurate_factor
-            * LADDER_INACCURATE_RELAX)
-        sub_lps = [items[i][2] for i in retry_idx]
-        sub_labels = [items[i][1].label for i in retry_idx]
-        rkey = ("retry", key) if key is not None and cache is not None \
-            else None
-        TellUser.info(
-            f"escalation: re-solving {len(retry_idx)} non-converged "
-            f"window(s) {sub_labels} with {LADDER_ITER_BOOST}x iteration "
-            "budget")
+        with telemetry_trace.phase("escalate", "escalate_s", rung="retry",
+                                   members=len(retry_idx)) as esc:
+            retried = _retry_rung(
+                items, retry_idx, xs, objs, ok, diags, statuses, backend,
+                solver_opts, key, cache, watchdog, ledger, policy,
+                cert_rejected, board, iterate_sink, device, ledger_tags,
+                plan)
+            esc.set_attr("recovered", retried)
+        ladder_s += esc.elapsed
+    # ---- rung 2: exact CPU fallback, one member at a time ----
+    rung2_idx = [i for i in fail_idx if not ok[i]]
+    if rung2_idx and board is not None and not board.allow("cpu_rung"):
+        # circuit breaker: the HiGHS fallback rung itself is sick
+        # (crashing / hanging / cert-rejecting) — quarantining fast
+        # beats wedging every round on a dead rung; the half-open
+        # probe re-opens it once it recovers
+        TellUser.warning(
+            f"escalation: CPU-fallback breaker OPEN — {len(rung2_idx)} "
+            "window(s) skip the exact CPU rung and quarantine directly")
+        rung2_idx = []
+    if rung2_idx:
+        with telemetry_trace.phase("escalate", "escalate_s",
+                                   rung="cpu_fallback",
+                                   members=len(rung2_idx)) as esc:
+            cpu_fallback = _cpu_rung(
+                items, rung2_idx, xs, objs, ok, diags, statuses, backend,
+                watchdog, policy, cert_rejected, board, plan)
+            esc.set_attr("recovered", cpu_fallback)
+        ladder_s += esc.elapsed
+        if ledger is not None:
+            ledger.append({"rung": "cpu_fallback", "backend": "cpu",
+                           "batch": len(rung2_idx), **(ledger_tags or {}),
+                           "solve_s": round(esc.elapsed, 4)})
+    # ladder wall time is attributed proportionally to each involved
+    # case's failed-member count: the per-case values then SUM to the real
+    # elapsed time, so the run report's aggregate is not inflated by the
+    # number of cases sharing one batched ladder
+    shares: Dict[int, list] = {}
+    for i in fail_idx:
+        s = items[i][0]
+        shares.setdefault(id(s), [s, 0])[1] += 1
+    with _health_lock:
+        for s, n in shares.values():
+            s.health["retry_seconds"] += ladder_s * n / len(fail_idx)
+    return retried, cpu_fallback
 
-        # warm-start the retry from each failed member's LAST iterate:
-        # the failed xs[] are already on the host (zeros after a
-        # watchdog timeout — a cold seed, harmless); the duals come off
-        # the device handle the initial solve left in ``iterate_sink``.
-        # A cold restart would discard everything the first budget
-        # bought; the seed lets the boosted budget CONTINUE instead.
-        retry_seeds = None
-        if backend != "cpu":
-            from ..ops import warmstart as _ws
-            if _ws.enabled():
-                X0 = np.stack([np.asarray(xs[i], np.float64)
-                               for i in retry_idx])
-                Y0 = np.zeros((len(retry_idx), items[0][2].m))
-                sink = iterate_sink or {}
-                y_dev = sink.get("y_dev")
-                rows = sink.get("rows") or {}
-                if y_dev is not None:
-                    try:
-                        from ..ops.pdhg import to_host
-                        y_host = np.atleast_2d(to_host(y_dev))
-                        # per member: a retried member missing from the
-                        # device-row map (e.g. substituted then
-                        # cert-rejected) keeps a zero dual seed without
-                        # costing its batchmates theirs
-                        for j, i in enumerate(retry_idx):
-                            if i in rows and rows[i] < y_host.shape[0]:
-                                Y0[j] = y_host[rows[i]]
-                    except Exception:
-                        pass        # cold dual seed — still sound
-                retry_seeds = (X0, Y0)
 
-        # private list for the same zombie-append hazard as the initial
-        # rung (see resolve_group)
-        retry_ledger = [] if ledger is not None else None
-        # dual-side recertification needs the retry's duals too — the
-        # rung that REJECTED for a dual/gap violation must not re-accept
-        # on a primal-only certificate (the CPU rung has no duals: the
-        # HiGHS wrapper does not surface them, so its recovery
-        # certificate is primal+objective only)
-        retry_y_box: Optional[dict] = (
-            {} if (policy.enabled and policy.check_dual
-                   and backend != "cpu") else None)
+def _retry_rung(items, retry_idx, xs, objs, ok, diags, statuses, backend,
+                solver_opts, key, cache, watchdog, ledger, policy,
+                cert_rejected, board, iterate_sink, device, ledger_tags,
+                plan) -> int:
+    """Rung 1 of :func:`_escalate`, the boosted-budget retry of
+    ``retry_idx``; returns the members it recovered."""
+    from ..ops.pdhg import STATUS_ITER_LIMIT, PDHGOptions
+    import dataclasses
+    base = solver_opts or PDHGOptions()
+    boosted = dataclasses.replace(
+        base, max_iters=base.max_iters * LADDER_ITER_BOOST,
+        inaccurate_factor=base.inaccurate_factor
+        * LADDER_INACCURATE_RELAX)
+    sub_lps = [items[i][2] for i in retry_idx]
+    sub_labels = [items[i][1].label for i in retry_idx]
+    rkey = ("retry", key) if key is not None and cache is not None \
+        else None
+    TellUser.info(
+        f"escalation: re-solving {len(retry_idx)} non-converged "
+        f"window(s) {sub_labels} with {LADDER_ITER_BOOST}x iteration "
+        "budget")
 
-        def _retry_call():
-            faultinject.maybe_sleep(sub_labels, faultinject.RUNG_RETRY)
-            return solve_group(sub_lps[0], sub_lps, backend, boosted,
-                               key=rkey, cache=cache, labels=sub_labels,
-                               ledger=retry_ledger,
-                               ledger_meta={"rung": "retry",
-                                            "windows": len(sub_lps),
-                                            **(ledger_tags or {})},
-                               y_sink=retry_y_box, seeds=retry_seeds,
-                               device=device)
+    # warm-start the retry from each failed member's LAST iterate:
+    # the failed xs[] are already on the host (zeros after a
+    # watchdog timeout — a cold seed, harmless); the duals come off
+    # the device handle the initial solve left in ``iterate_sink``.
+    # A cold restart would discard everything the first budget
+    # bought; the seed lets the boosted budget CONTINUE instead.
+    retry_seeds = None
+    if backend != "cpu":
+        from ..ops import warmstart as _ws
+        if _ws.enabled():
+            X0 = np.stack([np.asarray(xs[i], np.float64)
+                           for i in retry_idx])
+            Y0 = np.zeros((len(retry_idx), items[0][2].m))
+            sink = iterate_sink or {}
+            y_dev = sink.get("y_dev")
+            rows = sink.get("rows") or {}
+            if y_dev is not None:
+                try:
+                    from ..ops.pdhg import to_host
+                    y_host = np.atleast_2d(to_host(y_dev))
+                    # per member: a retried member missing from the
+                    # device-row map (e.g. substituted then
+                    # cert-rejected) keeps a zero dual seed without
+                    # costing its batchmates theirs
+                    for j, i in enumerate(retry_idx):
+                        if i in rows and rows[i] < y_host.shape[0]:
+                            Y0[j] = y_host[rows[i]]
+                except Exception:
+                    pass        # cold dual seed — still sound
+            retry_seeds = (X0, Y0)
 
-        (rxs, robjs, rok, rdiags, rstatuses), r_timed_out = _guarded_solve(
-            watchdog, "retry", sub_lps, sub_labels, _retry_call)
-        if r_timed_out:
-            _count_watchdog_timeout(items, retry_idx)
-        elif ledger is not None:
-            ledger.extend(retry_ledger)
+    # private list for the same zombie-append hazard as the initial
+    # rung (see resolve_group)
+    retry_ledger = [] if ledger is not None else None
+    # dual-side recertification needs the retry's duals too — the
+    # rung that REJECTED for a dual/gap violation must not re-accept
+    # on a primal-only certificate (the CPU rung has no duals: the
+    # HiGHS wrapper does not surface them, so its recovery
+    # certificate is primal+objective only)
+    retry_y_box: Optional[dict] = (
+        {} if (policy.enabled and policy.check_dual
+               and backend != "cpu") else None)
+
+    def _retry_call():
+        faultinject.maybe_sleep(sub_labels, faultinject.RUNG_RETRY)
+        return solve_group(sub_lps[0], sub_lps, backend, boosted,
+                           key=rkey, cache=cache, labels=sub_labels,
+                           ledger=retry_ledger,
+                           ledger_meta={"rung": "retry",
+                                        "windows": len(sub_lps),
+                                        **(ledger_tags or {})},
+                           y_sink=retry_y_box, seeds=retry_seeds,
+                           device=device)
+
+    (rxs, robjs, rok, rdiags, rstatuses), r_timed_out = _guarded_solve(
+        watchdog, "retry", sub_lps, sub_labels, _retry_call)
+    if r_timed_out:
+        _count_watchdog_timeout(items, retry_idx)
+    elif ledger is not None:
+        ledger.extend(retry_ledger)
+    # the retry's answers pass the float64 certificate (and the fault
+    # plan's alterations) member by member, in one phase
+    recovered = checked = 0
+    with telemetry_trace.phase("certify", "certify_s") as cph:
         for j, i in enumerate(retry_idx):
             label = items[i][1].label
             if rok[j] and plan is not None and plan.force_nonconverge(
@@ -2355,6 +2449,7 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
                     items[i][0], label, items[i][2], rxs[j], robjs[j],
                     policy, y=(rys[j] if rys is not None else None),
                     was_rejected=(i in cert_rejected))
+                checked += 1
                 if board is not None:
                     board.record("certify", cert.accepted)
                 if not cert.accepted:
@@ -2371,30 +2466,31 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
                 # counts "retried" only when rung 1 is where it landed
                 with _health_lock:
                     items[i][0].health["retried"] += 1
+                recovered += 1
                 TellUser.info(f"window {label} recovered on the "
                               "boosted-budget retry")
             else:
                 # carry the retry's (possibly changed) verdict into rung 2
                 diags[i], statuses[i] = rdiags[j], rstatuses[j]
-    # ---- rung 2: exact CPU fallback, one member at a time ----
-    t_rung2 = time.perf_counter()
-    rung2_idx = [i for i in fail_idx if not ok[i]]
-    if rung2_idx and board is not None and not board.allow("cpu_rung"):
-        # circuit breaker: the HiGHS fallback rung itself is sick
-        # (crashing / hanging / cert-rejecting) — quarantining fast
-        # beats wedging every round on a dead rung; the half-open
-        # probe re-opens it once it recovers
-        TellUser.warning(
-            f"escalation: CPU-fallback breaker OPEN — {len(rung2_idx)} "
-            "window(s) skip the exact CPU rung and quarantine directly")
-        rung2_idx = []
+        cph.set_attr("checked", checked)
+    return recovered
+
+
+def _cpu_rung(items, rung2_idx, xs, objs, ok, diags, statuses, backend,
+              watchdog, policy, cert_rejected, board, plan) -> int:
+    """Rung 2 of :func:`_escalate`, the exact CPU fallback of
+    ``rung2_idx`` one member at a time; returns the members it
+    recovered.  The HiGHS answers are re-certified in one pass after the
+    solves, and each member's breaker outcome is recorded there, in the
+    members' order."""
+    from ..ops.pdhg import STATUS_PRIMAL_INFEASIBLE
+    outcomes = []     # (i, x, obj, rung_ok), x None where HiGHS failed
     for i in rung2_idx:
         s, ctx, lp = items[i]
         if plan is not None and plan.cpu_should_fail(ctx.label):
             diags[i] = (f"{diags[i]}; fault injection: CPU fallback "
                         "forced to fail")
-            if board is not None:
-                board.record("cpu_rung", False)
+            outcomes.append((i, None, None, False))
             continue
         if backend == "cpu" and statuses[i] == STATUS_PRIMAL_INFEASIBLE:
             continue      # HiGHS already certified it exactly
@@ -2413,8 +2509,7 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
                     s.health["watchdog_timeouts"] += 1
                 diags[i] = (f"{diags[i]}; watchdog: CPU fallback exceeded "
                             f"the {watchdog.deadline_s:g}s deadline")
-                if board is not None:
-                    board.record("cpu_rung", False)
+                outcomes.append((i, None, None, False))
                 continue
         if res.status == 0 and np.isfinite(res.obj):
             xr = np.array(res.x, dtype=float)
@@ -2423,51 +2518,42 @@ def _escalate(items, fail_idx, xs, objs, ok, diags, statuses, backend,
                                                 faultinject.RUNG_CPU, plan)
                 if bad is not None:
                     xr = bad
-            cert = (_certify_and_record(s, ctx.label, lp, xr, res.obj,
-                                        policy,
-                                        was_rejected=(i in cert_rejected))
-                    if policy.enabled else None)
-            if cert is not None and board is not None:
-                board.record("certify", cert.accepted)
-            if cert is not None and not cert.accepted:
-                cert_rejected.add(i)
-                diags[i] = (f"{certify.REJECT_DIAG_PREFIX} CPU-fallback "
-                            f"solution rejected: {cert.reason}")
-                if board is not None:
-                    board.record("cpu_rung", False)
-                continue
-            xs[i], objs[i], ok[i] = xr, res.obj, True
-            with _health_lock:
-                s.health["cpu_fallback"] += 1
-            if board is not None:
-                board.record("cpu_rung", True)
-            TellUser.info(f"window {ctx.label} rescued on the exact CPU "
-                          "fallback")
+            outcomes.append((i, xr, res.obj, True))
         elif statuses[i] != STATUS_PRIMAL_INFEASIBLE:
             # keep the richer dual-ray diagnosis when PDHG certified
             # infeasibility; otherwise HiGHS's verdict is the better one
             diags[i] = res.message or diags[i]
+            # a definitive infeasible VERDICT is the exact rung doing its
+            # job (window-shaped failure, not rung sickness); only
+            # abnormal exits count against the rung's breaker
+            outcomes.append((i, None, None, res.status == 2))
+    recovered = 0
+    with telemetry_trace.phase("certify", "certify_s") as cph:
+        for i, xr, obj, rung_ok in outcomes:
+            if xr is not None:
+                s, ctx, lp = items[i]
+                cert = (_certify_and_record(s, ctx.label, lp, xr, obj,
+                                            policy,
+                                            was_rejected=(i in cert_rejected))
+                        if policy.enabled else None)
+                if cert is not None and board is not None:
+                    board.record("certify", cert.accepted)
+                if cert is not None and not cert.accepted:
+                    cert_rejected.add(i)
+                    diags[i] = (f"{certify.REJECT_DIAG_PREFIX} CPU-fallback "
+                                f"solution rejected: {cert.reason}")
+                    rung_ok = False
+                else:
+                    xs[i], objs[i], ok[i] = xr, obj, True
+                    with _health_lock:
+                        s.health["cpu_fallback"] += 1
+                    recovered += 1
+                    TellUser.info(f"window {ctx.label} rescued on the exact "
+                                  "CPU fallback")
             if board is not None:
-                # a definitive infeasible VERDICT is the exact rung doing
-                # its job (window-shaped failure, not rung sickness);
-                # only abnormal exits count against the rung's breaker
-                board.record("cpu_rung", res.status == 2)
-    if ledger is not None and rung2_idx:
-        ledger.append({"rung": "cpu_fallback", "backend": "cpu",
-                       "batch": len(rung2_idx), **(ledger_tags or {}),
-                       "solve_s": round(time.perf_counter() - t_rung2, 4)})
-    # ladder wall time is attributed proportionally to each involved
-    # case's failed-member count: the per-case values then SUM to the real
-    # elapsed time, so the run report's aggregate is not inflated by the
-    # number of cases sharing one batched ladder
-    elapsed = time.perf_counter() - t0
-    shares: Dict[int, list] = {}
-    for i in fail_idx:
-        s = items[i][0]
-        shares.setdefault(id(s), [s, 0])[1] += 1
-    with _health_lock:
-        for s, n in shares.values():
-            s.health["retry_seconds"] += elapsed * n / len(fail_idx)
+                board.record("cpu_rung", rung_ok)
+        cph.set_attr("checked", sum(o[1] is not None for o in outcomes))
+    return recovered
 
 
 PIPELINE_ENV = "DERVET_TPU_PIPELINE"
@@ -2726,88 +2812,99 @@ def run_dispatch(scenarios, backend: str = "torch", solver_opts=None,
     if backend not in ("torch", "cpu"):
         raise ValueError(f"backend must be 'torch' or 'cpu', got "
                          f"{backend!r}")
-    watchdog = (supervisor.watchdog if supervisor is not None
-                else _sup.SolveWatchdog.from_env())
-    if backend != "cpu":
-        from ..device import resolve_device
-        from ..parallel import elastic as _elastic
-        device = resolve_device(device)
-        if watchdog is not None and \
-                len(_elastic.visible_devices(device)) > 1:
-            # abandoning a solve split over several devices leaves its
-            # shard threads running on them, and the retry would start a
-            # SECOND split solve on the same devices under it.  A
-            # disabled watchdog degrades to the unguarded path; the
-            # checkpoint/manifest flush it protects still runs.
-            TellUser.warning(
-                f"{_sup.DEADLINE_ENV} ignored with several visible "
-                "devices: abandoning an in-flight sharded solve is unsafe "
-                "there — solve watchdog disabled")
-            watchdog = None
-    manifest = _sup.load_manifest(checkpoint_dir) if checkpoint_dir else None
-    for s in scenarios:
-        entry = (manifest or {}).get("cases", {}).get(str(s.case.case_id))
-        if entry is not None and entry.get("status") == "done" and \
-                entry.get("fingerprint") == s._checkpoint_fingerprint() and \
-                s.prepare_resume(backend, solver_opts, checkpoint_dir,
-                                 device):
-            continue
-        s.prepare_dispatch(backend, solver_opts, checkpoint_dir, device)
-
-    # -- preemption machinery: one counter of applied window batches;
-    # every boundary first gives the fault injector its chance to deliver
-    # a SIGTERM, then honors the supervisor's stop flag
-    _batches_done = [0]
-
-    def _batch_boundary():
-        _batches_done[0] += 1
-        faultinject.maybe_preempt(_batches_done[0])
-        if supervisor is not None and supervisor.stop_requested():
-            raise PreemptedError(
-                f"stop requested (signal {supervisor.stop_signal}) — "
-                f"dispatch halted after {_batches_done[0]} window "
-                "batch(es)")
-
-    try:
-        _dispatch_phases(scenarios, backend, solver_opts, watchdog,
-                         _batch_boundary, on_case_solved,
-                         solver_cache=solver_cache,
-                         breaker_board=breaker_board, device=device,
-                         elastic=elastic)
-    except PreemptedError as e:
-        # graceful shutdown: any batched-up checkpoint state is flushed
-        # (only the degradation path batches writes, in strides of 8 —
-        # group solves already persist after every apply, so most cases
-        # need no write here and the shutdown window stays short ahead of
-        # a scheduler's SIGKILL follow-up) and the sweep-level manifest
-        # records done/partial/quarantined per case, so the NEXT run with
-        # this checkpoint_dir resumes instead of restarting.  All writes
-        # are atomic — a second, impatient SIGTERM mid-flush leaves the
-        # previous complete files.
-        if checkpoint_dir:
+    # one phase for the whole call: its keyed children (assembly,
+    # staging, groups, rungs, builds, captures, certification) sum
+    # into dsp.totals on any thread, telemetry on or off
+    with telemetry_trace.phase("dispatch", "dispatch_s") as dsp:
+        watchdog = (supervisor.watchdog if supervisor is not None
+                    else _sup.SolveWatchdog.from_env())
+        if backend != "cpu":
+            from ..device import resolve_device
+            from ..parallel import elastic as _elastic
+            device = resolve_device(device)
+            if watchdog is not None and \
+                    len(_elastic.visible_devices(device)) > 1:
+                # abandoning a solve split over several devices leaves its
+                # shard threads running on them, and the retry would start a
+                # SECOND split solve on the same devices under it.  A
+                # disabled watchdog degrades to the unguarded path; the
+                # checkpoint/manifest flush it protects still runs.
+                TellUser.warning(
+                    f"{_sup.DEADLINE_ENV} ignored with several visible "
+                    "devices: abandoning an in-flight sharded solve is unsafe "
+                    "there — solve watchdog disabled")
+                watchdog = None
+        manifest = (_sup.load_manifest(checkpoint_dir) if checkpoint_dir
+                    else None)
+        with telemetry_trace.phase("prepare", cases=len(scenarios)):
             for s in scenarios:
-                if s.opt_engine and s.quarantine is None:
-                    s._flush_checkpoint()
-            _sup.write_manifest(checkpoint_dir, scenarios, backend)
-            TellUser.warning(
-                f"preempted: checkpoints + run manifest flushed to "
-                f"{checkpoint_dir}; re-run with the same checkpoint_dir "
-                "to resume")
-        else:
-            TellUser.warning(
-                "preempted with no checkpoint_dir: nothing could be "
-                "persisted — re-run starts from scratch")
-        raise e
-    _finish_dispatch_bookkeeping(scenarios, backend, checkpoint_dir)
+                entry = (manifest or {}).get("cases", {}).get(
+                    str(s.case.case_id))
+                if entry is not None and entry.get("status") == "done" and \
+                        entry.get("fingerprint") == \
+                        s._checkpoint_fingerprint() and \
+                        s.prepare_resume(backend, solver_opts,
+                                         checkpoint_dir, device):
+                    continue
+                s.prepare_dispatch(backend, solver_opts, checkpoint_dir,
+                                   device)
+
+        # -- preemption machinery: one counter of applied window batches;
+        # every boundary first gives the fault injector its chance to deliver
+        # a SIGTERM, then honors the supervisor's stop flag
+        _batches_done = [0]
+
+        def _batch_boundary():
+            _batches_done[0] += 1
+            faultinject.maybe_preempt(_batches_done[0])
+            if supervisor is not None and supervisor.stop_requested():
+                raise PreemptedError(
+                    f"stop requested (signal {supervisor.stop_signal}) — "
+                    f"dispatch halted after {_batches_done[0]} window "
+                    "batch(es)")
+
+        try:
+            _dispatch_phases(scenarios, backend, solver_opts, watchdog,
+                             _batch_boundary, dsp, on_case_solved,
+                             solver_cache=solver_cache,
+                             breaker_board=breaker_board, device=device,
+                             elastic=elastic)
+        except PreemptedError as e:
+            # graceful shutdown: any batched-up checkpoint state is flushed
+            # (only the degradation path batches writes, in strides of 8 —
+            # group solves already persist after every apply, so most cases
+            # need no write here and the shutdown window stays short ahead of
+            # a scheduler's SIGKILL follow-up) and the sweep-level manifest
+            # records done/partial/quarantined per case, so the NEXT run with
+            # this checkpoint_dir resumes instead of restarting.  All writes
+            # are atomic — a second, impatient SIGTERM mid-flush leaves the
+            # previous complete files.
+            if checkpoint_dir:
+                for s in scenarios:
+                    if s.opt_engine and s.quarantine is None:
+                        s._flush_checkpoint()
+                _sup.write_manifest(checkpoint_dir, scenarios, backend)
+                TellUser.warning(
+                    f"preempted: checkpoints + run manifest flushed to "
+                    f"{checkpoint_dir}; re-run with the same checkpoint_dir "
+                    "to resume")
+            else:
+                TellUser.warning(
+                    "preempted with no checkpoint_dir: nothing could be "
+                    "persisted — re-run starts from scratch")
+            raise e
+        _finish_dispatch_bookkeeping(scenarios, backend, checkpoint_dir)
 
 
 def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
-                     _batch_boundary, on_case_solved=None,
+                     _batch_boundary, dsp, on_case_solved=None,
                      solver_cache=None, breaker_board=None,
                      device=None, elastic=None) -> None:
     """Phases 1 (structure-grouped) and 2 (degradation-stepped) of the
     batched dispatch; split out of ``run_dispatch`` so the preemption
-    handler wraps exactly the interruptible region."""
+    handler wraps exactly the interruptible region.  ``dsp`` is the
+    call's ``dispatch`` phase: the parent of the groups solved on other
+    threads, and the sums the dispatch metadata reports."""
 
     # phase 1: all non-degradation windows of all cases, pre-grouped by a
     # CHEAP structural fingerprint (no LP assembly), then — once a group's
@@ -2862,15 +2959,14 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
     # a swept parameter starts entering K, the fan-out shows up here
     exact_keys_all: set = set()
     exact_keys_by_case: Dict[int, set] = {}
-    # wall-clock phase observables (VERDICT r5 #1): host LP assembly vs
-    # solve (device solve + readback for 'torch'; HiGHS for 'cpu'),
-    # plus the per-group solve LEDGER that decomposes the solve phase
-    # into named device-traffic line items.  Cumulative across pipeline
-    # threads — overlap means they may sum past the dispatch wall time.
-    phase_acc = {"assembly_s": 0.0, "solve_s": 0.0, "stage_s": 0.0}
+    # wall-clock phase observables (VERDICT r5 #1): host LP assembly
+    # (``assembly`` phases), staging (``stage``) and solve (device solve
+    # + readback for 'torch', HiGHS for 'cpu': ``dispatch_group``), summed
+    # into dsp.totals, plus the per-group solve LEDGER that decomposes the
+    # solve phase into named device-traffic line items.  Cumulative
+    # across pipeline threads — overlap means they may sum past the
+    # dispatch wall time.
     ledger_entries: list = []
-    import threading
-    phase_lock = threading.Lock()    # solve_only runs in pool workers
     pipeline_on = backend != "cpu" and _pipeline_enabled()
     # cases whose LAST window just solved, announced to the caller so
     # per-case post-processing overlaps the remaining in-flight solves
@@ -2886,29 +2982,34 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             on_case_solved(s)
 
     def solve_only(key, items, staged=None):
-        t0 = time.perf_counter()
-        out = items, resolve_group(items, backend, solver_opts,
-                                   key=key, cache=cache, watchdog=watchdog,
-                                   staged=staged, ledger=ledger_entries,
-                                   board=breaker_board, policy=cert_policy)
-        dt_ = time.perf_counter() - t0
-        with phase_lock:
-            phase_acc["solve_s"] += dt_
-        return out
+        # on a pool worker: the group phase parents explicitly
+        return items, resolve_group(items, backend, solver_opts,
+                                    key=key, cache=cache, watchdog=watchdog,
+                                    staged=staged, ledger=ledger_entries,
+                                    board=breaker_board, policy=cert_policy,
+                                    parent=dsp)
+
+    def wait(fut):
+        """The dispatch thread blocked on a group's solve."""
+        with telemetry_trace.phase("wait"):
+            return fut.result()
 
     def scatter(items, result):
         xs, objs, ok, diags = result
         per_case: Dict[int, list] = {}
         order: Dict[int, MicrogridScenario] = {}
-        for (s, ctx, lp), x, o, k, dg in zip(items, xs, objs, ok, diags):
-            per_case.setdefault(id(s), []).append(((ctx, lp), x, o, k, dg))
-            order[id(s)] = s
-        for sid, entries in per_case.items():
-            order[sid].apply_subgroup(
-                [e[0] for e in entries], [e[1] for e in entries],
-                [e[2] for e in entries], [e[3] for e in entries],
-                [e[4] for e in entries], backend)
-            _maybe_case_solved(order[sid])
+        with telemetry_trace.phase("scatter", windows=len(items)):
+            for (s, ctx, lp), x, o, k, dg in zip(items, xs, objs, ok,
+                                                 diags):
+                per_case.setdefault(id(s), []).append(
+                    ((ctx, lp), x, o, k, dg))
+                order[id(s)] = s
+            for sid, entries in per_case.items():
+                order[sid].apply_subgroup(
+                    [e[0] for e in entries], [e[1] for e in entries],
+                    [e[2] for e in entries], [e[3] for e in entries],
+                    [e[4] for e in entries], backend)
+                _maybe_case_solved(order[sid])
 
     def split_exact(members):
         """Build a cheap group's LPs and split by the exact byte-level
@@ -2920,28 +3021,32 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
         TEMPLATE; sibling cases then assemble data-only against its K
         (digest-verified inside build_window_lp — a swept parameter that
         enters K falls back to a full build and splits off below)."""
-        t0 = time.perf_counter()
         templates: Dict[object, LP] = {}
         items = []
-        for s, ctx in members:
-            if s.quarantine is not None:    # case failed in an earlier group
-                continue
-            lp = s.build_window_lp(ctx, s._annuity_scalar, s._requirements,
-                                   template=templates.get(ctx.label))
-            if ctx.label not in templates:
-                templates[ctx.label] = lp
-            items.append((s, ctx, lp))
-        phase_acc["assembly_s"] += time.perf_counter() - t0
-        # pre-dispatch input guards: poisoned members quarantine their
-        # case here, with a window-labeled diagnostic, instead of burning
-        # a device budget on NaN data
-        items = guard_items(items)
-        subgroups: Dict[tuple, list] = {}
-        for item in items:
-            k = MicrogridScenario._structure_key(item[2])
-            subgroups.setdefault(k, []).append(item)
-            exact_keys_all.add(k)
-            exact_keys_by_case.setdefault(id(item[0]), set()).add(k)
+        with telemetry_trace.phase("assembly",
+                                   "dispatch_assembly_s") as asm:
+            for s, ctx in members:
+                if s.quarantine is not None:  # failed in an earlier group
+                    continue
+                lp = s.build_window_lp(ctx, s._annuity_scalar,
+                                       s._requirements,
+                                       template=templates.get(ctx.label))
+                if ctx.label not in templates:
+                    templates[ctx.label] = lp
+                items.append((s, ctx, lp))
+            asm.set_attrs({"windows": len(items),
+                           "templates": len(templates)})
+        with telemetry_trace.phase("split", windows=len(items)):
+            # pre-dispatch input guards: poisoned members quarantine their
+            # case here, with a window-labeled diagnostic, instead of
+            # burning a device budget on NaN data
+            items = guard_items(items)
+            subgroups: Dict[tuple, list] = {}
+            for item in items:
+                k = MicrogridScenario._structure_key(item[2])
+                subgroups.setdefault(k, []).append(item)
+                exact_keys_all.add(k)
+                exact_keys_by_case.setdefault(id(item[0]), set()).add(k)
         return subgroups
 
     max_inflight = 0
@@ -2983,27 +3088,22 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             tags = {"device": dev_idx}
             if task.stolen:
                 tags["stolen"] = True
-            t0 = time.perf_counter()
-            out = resolve_group(task.items, backend, solver_opts,
-                                key=task.key, cache=shard,
-                                watchdog=watchdog, staged=task.staged,
-                                ledger=ledger_entries, board=breaker_board,
-                                policy=cert_policy, device=dev,
-                                ledger_tags=tags)
-            dt_ = time.perf_counter() - t0
-            with phase_lock:
-                phase_acc["solve_s"] += dt_
-            return out
+            return resolve_group(task.items, backend, solver_opts,
+                                 key=task.key, cache=shard,
+                                 watchdog=watchdog, staged=task.staged,
+                                 ledger=ledger_entries, board=breaker_board,
+                                 policy=cert_policy, device=dev,
+                                 ledger_tags=tags, parent=dsp)
 
         def _elastic_stage(dev, task):
             # on the worker's thread, so on its stream: the upload is
             # ordered before the solve that reads it
-            t0 = time.perf_counter()
-            staged = stage_group_data(
-                task.items, solver_opts, dev,
-                pad_to=_batch_pad_to(cache, len(task.items)))
-            with phase_lock:
-                phase_acc["stage_s"] += time.perf_counter() - t0
+            with telemetry_trace.phase("stage", "dispatch_stage_s",
+                                       parent=dsp) as st:
+                staged = stage_group_data(
+                    task.items, solver_opts, dev,
+                    pad_to=_batch_pad_to(cache, len(task.items)))
+                st.set_attr("bytes", getattr(staged, "h2d_bytes", 0))
             return staged
 
         # the straggler drill queues the round's groups before the
@@ -3033,7 +3133,13 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             # worker's error (a CUDA fault included) raises here.
             done_buf: Dict[int, tuple] = {}
             next_seq = 0
-            for task, result, err in sched.completions():
+            completions = sched.completions()
+            while True:
+                with telemetry_trace.phase("wait"):
+                    done = next(completions, None)
+                if done is None:
+                    break
+                task, result, err = done
                 if err is not None:
                     raise err
                 done_buf[task.seq] = (task, result)
@@ -3067,18 +3173,20 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             while groups:
                 _, members = groups.popitem()
                 for k, its in split_exact(members).items():
-                    t0 = time.perf_counter()
-                    staged = stage_group_data(
-                        its, solver_opts, cache.device,
-                        pad_to=_batch_pad_to(cache, len(its), multi_dev))
-                    phase_acc["stage_s"] += time.perf_counter() - t0
+                    with telemetry_trace.phase("stage",
+                                               "dispatch_stage_s") as st:
+                        staged = stage_group_data(
+                            its, solver_opts, cache.device,
+                            pad_to=_batch_pad_to(cache, len(its),
+                                                 multi_dev))
+                        st.set_attr("bytes", getattr(staged, "h2d_bytes", 0))
                     futs.append(pool.submit(solve_only, k, its, staged))
                     while len(futs) > max_inflight:
-                        items, result = futs.popleft().result()
+                        items, result = wait(futs.popleft())
                         scatter(items, result)
                         _batch_boundary()
             while futs:
-                items, result = futs.popleft().result()
+                items, result = wait(futs.popleft())
                 scatter(items, result)
                 _batch_boundary()
 
@@ -3100,14 +3208,13 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             items = guard_items(items)
             if not items:
                 continue
-            t0 = time.perf_counter()
             xs, objs, ok, diags = resolve_group(items, backend, solver_opts,
                                                 key=key, cache=cache,
                                                 watchdog=watchdog,
                                                 ledger=ledger_entries,
                                                 board=breaker_board,
-                                                policy=cert_policy)
-            phase_acc["solve_s"] += time.perf_counter() - t0
+                                                policy=cert_policy,
+                                                parent=dsp)
             for (s, ctx, lp), x, o, k, dg in zip(items, xs, objs, ok, diags):
                 s.apply_subgroup([(ctx, lp)], [x], [o], [k], [dg], backend)
                 if s.quarantine is not None:
@@ -3118,59 +3225,63 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
         deg = [s for s in deg
                if s.quarantine is None and s._deg_pos < len(s._pending)]
 
-    ledger = summarize_solve_ledger(ledger_entries, phase_acc["solve_s"],
-                                    pipeline_on, max_inflight)
-    if elastic_stats is not None:
-        # per-device ledger slices: each device's group-entry walls must
-        # account for its busy wall the same way the global entries
-        # account for dispatch_solve_s (the accounted_fraction gate,
-        # extended per device)
-        for dstr, rec in elastic_stats["devices"].items():
-            ent = [e for e in ledger["groups"]
-                   if str(e.get("device")) == dstr]
-            rec["solve_s"] = round(sum(float(e.get("solve_s", 0.0))
-                                       for e in ent), 4)
-            rec["accounted_fraction"] = (
-                round(rec["solve_s"] / rec["busy_s"], 4)
-                if rec["busy_s"] else None)
-        ledger["elastic"] = elastic_stats
-    # numerical-trust line items ride the ledger too: per-run certificate
-    # counts + certification/shadow wall time next to the device-traffic
-    # decomposition they taxed
-    ledger["certification"] = certify.aggregate_certification(
-        {i: getattr(s, "certification", None)
-         for i, s in enumerate(scenarios)})
-    if breaker_board is not None:
-        # service resilience: the ladder breakers' post-dispatch states
-        # ride the ledger so a tripped rung is visible next to the rung
-        # entries it suppressed
-        ledger["breakers"] = breaker_board.snapshot()
-    shadow_got = ledger["certification"]["shadow"]["n"]
-    if shadow_got < shadow_expected:
-        # a sampled window ended quarantined (or its shadow re-solve
-        # failed): say so rather than silently shipping a run with less
-        # drift coverage than the policy promises
-        TellUser.warning(
-            f"shadow-solve coverage {shadow_got}/{shadow_expected}: "
-            "sampled window(s) were lost to quarantine or shadow-solve "
-            "failure this run")
-    for s in scenarios:
-        # observable for the solver cache: a degradation year must show
-        # builds == distinct structures (typically 3 month lengths), not
-        # builds == window steps
-        # dispatch_ prefix: these are DISPATCH-GLOBAL totals recorded on
-        # every case of a sweep, not per-case counts (ADVICE r4)
-        s.solve_metadata["dispatch_solver_builds"] = cache.builds
-        s.solve_metadata["dispatch_solver_hits"] = cache.hits
-        s.solve_metadata["dispatch_assembly_s"] = round(
-            phase_acc["assembly_s"], 3)
-        s.solve_metadata["dispatch_solve_s"] = round(phase_acc["solve_s"], 3)
-        s.solve_metadata["dispatch_stage_s"] = round(phase_acc["stage_s"], 3)
-        s.solve_metadata["structure_groups_total"] = len(
-            exact_keys_by_case.get(id(s), ()))
-        s.solve_metadata["dispatch_groups_total"] = len(exact_keys_all)
-        s.solve_metadata["solve_ledger"] = ledger
-        s.finish_dispatch()
+    # the dispatch's bookkeeping: the ledger, the certification and
+    # breaker summaries, each case's metadata
+    with telemetry_trace.phase("finish", cases=len(scenarios)):
+        sums = dsp.totals
+        ledger = summarize_solve_ledger(ledger_entries,
+                                        sums.get("dispatch_solve_s", 0.0),
+                                        pipeline_on, max_inflight)
+        if elastic_stats is not None:
+            # per-device ledger slices: each device's group-entry walls must
+            # account for its busy wall the same way the global entries
+            # account for dispatch_solve_s (the accounted_fraction gate,
+            # extended per device)
+            for dstr, rec in elastic_stats["devices"].items():
+                ent = [e for e in ledger["groups"]
+                       if str(e.get("device")) == dstr]
+                rec["solve_s"] = round(sum(float(e.get("solve_s", 0.0))
+                                           for e in ent), 4)
+                rec["accounted_fraction"] = (
+                    round(rec["solve_s"] / rec["busy_s"], 4)
+                    if rec["busy_s"] else None)
+            ledger["elastic"] = elastic_stats
+        # numerical-trust line items ride the ledger too: per-run certificate
+        # counts + certification/shadow wall time next to the device-traffic
+        # decomposition they taxed
+        ledger["certification"] = certify.aggregate_certification(
+            {i: getattr(s, "certification", None)
+             for i, s in enumerate(scenarios)})
+        if breaker_board is not None:
+            # service resilience: the ladder breakers' post-dispatch states
+            # ride the ledger so a tripped rung is visible next to the rung
+            # entries it suppressed
+            ledger["breakers"] = breaker_board.snapshot()
+        shadow_got = ledger["certification"]["shadow"]["n"]
+        if shadow_got < shadow_expected:
+            # a sampled window ended quarantined (or its shadow re-solve
+            # failed): say so rather than silently shipping a run with less
+            # drift coverage than the policy promises
+            TellUser.warning(
+                f"shadow-solve coverage {shadow_got}/{shadow_expected}: "
+                "sampled window(s) were lost to quarantine or shadow-solve "
+                "failure this run")
+        for s in scenarios:
+            # observable for the solver cache: a degradation year must show
+            # builds == distinct structures (typically 3 month lengths), not
+            # builds == window steps
+            # dispatch_ prefix: these are DISPATCH-GLOBAL totals recorded on
+            # every case of a sweep, not per-case counts (ADVICE r4)
+            s.solve_metadata["dispatch_solver_builds"] = cache.builds
+            s.solve_metadata["dispatch_solver_hits"] = cache.hits
+            for k in ("dispatch_assembly_s", "dispatch_solve_s",
+                      "dispatch_stage_s"):
+                s.solve_metadata[k] = round(sums.get(k, 0.0), 3)
+            s.solve_metadata["structure_groups_total"] = len(
+                exact_keys_by_case.get(id(s), ()))
+            s.solve_metadata["dispatch_groups_total"] = len(exact_keys_all)
+            s.solve_metadata["solve_ledger"] = ledger
+            s.finish_dispatch()
 
 
 def _finish_dispatch_bookkeeping(scenarios, backend, checkpoint_dir) -> None:

@@ -28,6 +28,23 @@ Design constraints, in order:
   process agree on the id even across a SIGKILL failover; the ``trace``
   CLI stitches their exported ``trace.<rid>.json`` files into one tree.
 
+**Phases** (:func:`phase`) are the run-scoped half: one ``with`` block
+for each phase of the product entry (``DERVET.solve``'s ``valuation``
+root, prep, dispatch, the groups, rungs, solver builds, captures,
+certification, the outage walks, post).  A phase always times itself
+(one clock pair) and adds its duration under its key to its own and
+every enclosing phase's ``totals`` — ``Result.phase_seconds`` and the
+dispatch metadata read those sums, telemetry on or off.  It records a
+span only when telemetry is on AND its parent records (a root phase, a
+recording phase, or a request's span), so a direct solver call (the
+price sweep, ``ops.solve_lp``) or a service round records nothing and
+leaves no orphan in the collector.  A root phase takes its tree out of
+the collector as it exits (:attr:`Phase.trace`, ``Result.trace``); it
+is written only on request: ``export_chrome_trace(result.trace,
+path)``.  Phases emit no profiler range: a span's ``t_start`` is
+``time.time()``, the clock the profiler stamps its events with, so the
+two timelines join as they are.
+
 Thread model: span creation/finish may happen on any thread (the
 collector is lock-protected).  Ambient parenting (``with span(...)``)
 is per-thread; code that crosses threads — the batcher handing a request
@@ -184,8 +201,11 @@ class Span:
     def end(self, error=None) -> "Span":
         if self._ended:
             return self
+        return self._close(time.monotonic() - self._t0_mono, error)
+
+    def _close(self, duration_s: float, error=None) -> "Span":
         self._ended = True
-        self.duration_s = time.monotonic() - self._t0_mono
+        self.duration_s = duration_s
         if error is not None:
             self.status = "error"
             self.attrs.setdefault("error", f"{type(error).__name__}: "
@@ -241,7 +261,8 @@ def _tls_stack() -> list:
     return stack
 
 
-def current() -> Optional[Span]:
+def current():
+    """The calling thread's innermost open span or phase (None if none)."""
     stack = getattr(_tls, "stack", None)
     return stack[-1] if stack else None
 
@@ -331,11 +352,12 @@ def start_span(name: str, *, parent=None, trace_id: Optional[str] = None,
     """Start one span (the caller ends it).  Returns :data:`NOOP` when
     telemetry is off.
 
-    Parent resolution, most explicit first: ``parent`` (a :class:`Span`
-    or a ``{"trace_id", "span_id"}`` context dict, e.g. off a transport
-    payload), then the span registered for ``rid``, then the calling
-    thread's ambient span, else a root (``trace_id`` defaults to
-    :func:`trace_id_for` of ``rid`` when given, else a fresh id)."""
+    Parent resolution, most explicit first: ``parent`` (a :class:`Span`,
+    a :class:`Phase`, or a ``{"trace_id", "span_id"}`` context dict, e.g.
+    off a transport payload), then the span registered for ``rid``, then
+    the calling thread's ambient span or phase, else a root
+    (``trace_id`` defaults to :func:`trace_id_for` of ``rid`` when given,
+    else a fresh id)."""
     if not enabled():
         return NOOP
     parent_id = None
@@ -343,6 +365,8 @@ def start_span(name: str, *, parent=None, trace_id: Optional[str] = None,
         parent = COLLECTOR.context_for_request(rid)
     if parent is None:
         parent = current()
+    if isinstance(parent, Phase):
+        parent = parent.span
     if isinstance(parent, Span):
         trace_id = trace_id or parent.trace_id
         parent_id = parent.span_id
@@ -360,6 +384,133 @@ def start_span(name: str, *, parent=None, trace_id: Optional[str] = None,
 def span(name: str, **attrs):
     """Ambient-parented span for ``with`` blocks."""
     return start_span(name, attrs=attrs or None)
+
+
+# ---------------------------------------------------------------------------
+# Phases: timed always, recorded under a recording parent
+# ---------------------------------------------------------------------------
+
+_totals_lock = threading.Lock()
+
+
+class Phase:
+    """One phase of a run (see :func:`phase`).  ``elapsed`` holds its
+    seconds once the block exits; ``totals`` the per-key sums of it and
+    every keyed phase below it, on any thread; a root phase's ``trace``
+    the finished spans of its tree (empty when telemetry was off)."""
+
+    __slots__ = ("name", "key", "parent", "attrs", "totals", "span",
+                 "mirrors", "t_start", "elapsed", "trace", "_root", "_t0")
+
+    def __init__(self, name: str, key: Optional[str] = None, parent=None,
+                 root: bool = False, mirrors=(), attrs=None):
+        self.name = name
+        self.key = key
+        self.parent = parent
+        self.attrs: Dict = dict(attrs) if attrs else {}
+        self.totals: Dict[str, float] = {}
+        self.span: Optional[Span] = None
+        self.mirrors = mirrors
+        self.elapsed: Optional[float] = None
+        self.trace: List[Dict] = []
+        self._root = root
+
+    def set_attr(self, key, value) -> "Phase":
+        self.attrs[str(key)] = value
+        return self
+
+    def set_attrs(self, attrs: Dict) -> "Phase":
+        for k, v in attrs.items():
+            self.attrs[str(k)] = v
+        return self
+
+    def __enter__(self) -> "Phase":
+        self.t_start = time.time()
+        self._t0 = time.monotonic()
+        if enabled():
+            up = (self.parent.span if isinstance(self.parent, Phase)
+                  else self.parent)
+            if self._root:
+                self.span = Span(self.name, _new_span_id(),
+                                 t_start=self.t_start)
+            elif isinstance(up, Span):
+                self.span = Span(self.name, up.trace_id,
+                                 parent_id=up.span_id, t_start=self.t_start)
+        _tls_stack().append(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.elapsed = time.monotonic() - self._t0
+        stack = _tls_stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        if self.key is not None:
+            with _totals_lock:
+                p = self
+                while isinstance(p, Phase):
+                    p.totals[self.key] = \
+                        p.totals.get(self.key, 0.0) + self.elapsed
+                    p = p.parent
+        if self.span is not None:
+            self.span.set_attrs(self.attrs)
+            # the thread names the phase's lane, and which of its
+            # children ran on its own thread
+            self.span.set_attr("thread", threading.current_thread().name)
+            self.span._close(self.elapsed, exc)
+            if self._root:
+                # the run's tree leaves the collector with its root
+                self.trace = COLLECTOR.pop(self.span.trace_id)
+        for up in self.mirrors:
+            start_span(self.name, parent=up, t_start=self.t_start,
+                       duration_s=self.elapsed, attrs=self.attrs)
+        return False
+
+    def __bool__(self):
+        # as with spans: `if ph:` reads "is telemetry recording this?"
+        return self.span is not None
+
+
+class ambient:
+    """``with ambient(parent):`` makes ``parent`` (a span or phase, or
+    None) the calling thread's innermost one for the block, untimed: a
+    thread that runs work on another's behalf keeps its phases in place
+    in the trace and in the sums."""
+
+    __slots__ = ("parent",)
+
+    def __init__(self, parent):
+        self.parent = parent
+
+    def __enter__(self):
+        _tls_stack().append(self.parent)
+        return self.parent
+
+    def __exit__(self, exc_type, exc, tb):
+        stack = _tls_stack()
+        if stack and stack[-1] is self.parent:
+            stack.pop()
+        return False
+
+
+def phase(name: str, key: Optional[str] = None, *, parent=None,
+          root: bool = False, mirrors=(), **attrs) -> Phase:
+    """A phase of a run, for ``with`` blocks.
+
+    The block is always timed, and with ``key`` its seconds add to the
+    ``totals`` of the phase and of every phase above it.  ``parent`` (a
+    :class:`Phase` or a request's :class:`Span`) defaults to the calling
+    thread's innermost span or phase; work handed to another thread
+    passes it.  A span is recorded only when telemetry is on and the
+    parent records; ``root`` starts a run of its own (no parent), whose
+    spans :attr:`Phase.trace` holds once it exits.  ``mirrors`` are
+    request spans that get a finished copy of this one as a child (a
+    request's trace through a batched round).  No profiler range is
+    emitted."""
+    if root:
+        parent = None
+    elif parent is None:
+        parent = current()
+    return Phase(name, key, parent, root, mirrors, attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +664,8 @@ def to_chrome(spans: List[Dict], request_id: Optional[str] = None) -> Dict:
     named lanes.  Dispatch-group spans carry the elastic scheduler's
     ``device`` attribute, so each device gets its own lane — the
     per-device occupancy timeline the serving benches gate on, loadable
-    without any custom tooling."""
+    without any custom tooling; a run's phases take the lane of the
+    thread they ran on."""
     lanes: Dict[str, int] = {}
     events: List[Dict] = []
 
@@ -523,6 +675,8 @@ def to_chrome(spans: List[Dict], request_id: Optional[str] = None) -> Dict:
             name = f"device:{attrs['device']}"
         elif attrs.get("replica"):
             name = f"replica:{attrs['replica']}"
+        elif attrs.get("thread"):
+            name = f"thread:{attrs['thread']}"
         else:
             name = "request"
         if name not in lanes:
