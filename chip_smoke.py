@@ -46,12 +46,29 @@ Phases:
                at 7,000, 12,000, 4,000 and 1,000 and the ICE + CHP ones
                at 7,000, 4,000 and 1,000, each with the compaction
                buckets 8-2,048 below it; the real batches and bucket 8
-               timed);
+               timed); then the check window in the kernels (the chunk
+               kernel with its activity predicate, the check kernel, the
+               status kernel) against the plain window (PyTorch's check,
+               select and status) at the main paths' shapes
+               (``WINDOW_SHAPES``: phase 14's 31-day month at 7,000,
+               phase 6's microgrid window at 448, phase 4's week at 416)
+               on a batch that mixes active, converged, infeasible,
+               over-limit and held instances (``window_comparison`` of
+               tests/test_torch_cuda.py: inactive ones bit-equal, every
+               decision with a margin equal), under the product's
+               options, a converging window and halpern with fixed-point
+               restarts; then each new kernel's device time beside its
+               bytes bound and its plain version's, and the chunk kernel
+               with the predicate on a fully active and a half-converged
+               batch (also at bucket 8);
   3. main    — ``DERVET.from_cases(synthetic_sensitivity_cases(128,
                daily_cycle_limit=1)).solve(backend="torch")``: 128 cases x
                12 monthly windows; every window certified, no CPU-fallback
                window, every group on the banded kernel at a shape phase 2
-               checked, and its launches;
+               checked, and its launches; the check kernel launched once
+               a check window and once a capture's warm-up window, the
+               status kernel once a window and once a chunk's start
+               (``fused_chunk.WINDOW_LAUNCHES``);
   4. dense   — eight weekly-window cases (``n=168``) through the same entry,
                riding the dense kernel at shapes phase 2 checked;
   5. check   — the first 4 cases of phase 3 on exact HiGHS
@@ -212,14 +229,19 @@ Phases:
                run's two open faults (``NORTHSTAR_FAULT_*``) are printed
                and bounded, not passed over.  Each pass also runs first
                on the eager window loop (``eager_solve``), whose answers
-               the graph pass must equal bit for bit.  Prints each
+               the graph pass must equal bit for bit, and on the plain
+               window (``plain_pass``): objectives within the
+               certificate's objective tolerance, statuses equal and
+               iterations within one window for 95% of the instances
+               (both outside 14.3's fault window).  Prints each
                pass's wall, each group's batch, m x n, iterations
                p50/p90/p99/max and launches, the bytes copied, peak
                device memory allocated and reserved on both loops and
                the host seconds of the checks;
  15. graphs  — run right after phase 2: the compiled chunk program (each
                check window a replay of a captured CUDA graph) against
-               the eager window loop (``_Solver.run_chunk``) on the card,
+               the eager window loop (``_Solver.run_chunk``, the same
+               kernels without graphs) on the card,
                bit for bit (every state field, then the finalized status,
                iterations, restarts and objective) with equal kernel
                launches once the warm-ups before the captures are set
@@ -449,6 +471,29 @@ INT32_MAX = 2 ** 31 - 1
 # scenarios and the bucket it compacts to
 GRAPH_CHUNK = 4096
 GRAPH_SEPT_SCENARIOS, GRAPH_BUCKET = 1000, 8
+# phase 2's check-window kernels: the main paths' windows and batches --
+# phase 14's 31-day month at its 7,000 and at the compaction bucket of 8,
+# phase 6's first window (the microgrid with Reliability, 2977 x 5952,
+# the shared-state configuration) at its 448, phase 4's week (dense) at
+# its 416 -- each compared with the plain window (``window_comparison``
+# of tests/test_torch_cuda.py, on a batch that mixes active, converged,
+# infeasible, over-limit and held instances; not at the bucket, which
+# is too narrow for that mix) and timed from a mid-solve state
+WINDOW_SHAPES = (("northstar 31d", 7000), ("northstar 31d", 8),
+                 ("microgrid", 448), ("dense 7d", 52 * WEEKLY_CASES))
+WINDOW_COMPARE_MIN = 8
+# the options each comparison runs under: the product's (reflected, KKT
+# restarts, adaptive cadence), also with a window that checks at a
+# tolerance half of the active instances meet; and halpern with
+# fixed-point restarts
+WINDOW_OPTS = (({}, False), ({}, True),
+               ({"variant": "halpern", "restart_scheme": "fixed_point"},
+                False))
+# the phase 14 passes against the same draws on the plain window: status
+# equal, objective within the certificate's objective tolerance,
+# iterations within one window of each other for at least this share of
+# the instances (outside the recorded fault window)
+NORTHSTAR_PLAIN_ITERS_SHARE = 0.95
 
 
 def northstar_pairs():
@@ -513,8 +558,10 @@ def card_line() -> str:
 
 def ptxas_report(build_log):
     """One record per compiled kernel instance from ptxas's ``-v``
-    report: kernel name, template arguments (variant, threads, columns
-    and rows a thread), registers, stack frame and spill bytes."""
+    report: kernel name, template arguments (chunk kernels: variant,
+    threads, columns and rows a thread, blocks an SM; the check kernel:
+    whether it takes the fixed-point restart), registers, stack frame
+    and spill bytes."""
     import re
     recs, cur = {}, None
     for line in build_log.splitlines():
@@ -524,11 +571,16 @@ def ptxas_report(build_log):
             cur = None
             k = re.search(r"(banded|dense)_chunk_kernelI((?:Li-?\d+E)+)E",
                           m.group(1))
-            if k:
+            w = re.search(r"(check_window_kernel)ILb([01])E|"
+                          r"(window_status_kernel)", m.group(1))
+            if k or w:
+                name, template = (
+                    (f"{k.group(1)}_chunk_kernel",
+                     [int(v) for v in re.findall(r"Li(-?\d+)E", k.group(2))])
+                    if k else (w.group(1) or w.group(3),
+                               [int(w.group(2))] if w.group(2) else []))
                 cur = recs.setdefault(m.group(1), {
-                    "kernel": f"{k.group(1)}_chunk_kernel",
-                    "template": [int(v) for v in
-                                 re.findall(r"Li(-?\d+)E", k.group(2))],
+                    "kernel": name, "template": template,
                     "registers": None, "stack": 0, "spill_stores": 0,
                     "spill_loads": 0})
             continue
@@ -921,7 +973,180 @@ def kernel_phase():
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
+    window_phase(records)
     return records, checked, found
+
+
+def card_tests():
+    """``tests/test_torch_cuda.py`` as a module, loaded from its file (its
+    check-window comparison, ``window_comparison``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_cuda.py"
+    spec = importlib.util.spec_from_file_location("test_torch_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def window_shape_lp(name):
+    from dervet_tpu_torch import benchlib
+    if name == "northstar 31d":
+        return benchlib.build_window_lps(benchlib.synthetic_case())[1][744][0]
+    if name == "microgrid":
+        return benchlib.window_lps(benchlib.synthetic_case(
+            multi_der=True, reliability=True))[0]
+    return window_lps(168, 0)[168]
+
+
+def window_timing(solver, B, reps=20):
+    """The check window's kernels at batch ``B`` from a mid-solve state
+    (the solver's cold start advanced WARM_ITERS iterations, every
+    instance at one sub-block a window): device ms a launch of the check
+    kernel, of the status kernel and of the chunk kernel with the
+    activity predicate (the batch fully active, and every other instance
+    converged); the plain versions' device ms (the plain window less its
+    chunk kernel and the copies that restore the state; the plain
+    status); and each new kernel's bytes bound at the card's HBM rate:
+    the check reads x, x_sum, x_restart, c, l, u and y, y_sum, y_restart,
+    q of each instance once and its 24 scalars and two flags, dr, dc and
+    K once; the status reads two flags and two counts an instance and
+    writes 5 + B ints."""
+    import numpy as np
+    import torch
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops import pdhg
+    sv, op, lp, dev = solver._solver, solver.op, solver.lp, solver.device
+    rng = np.random.default_rng(B)
+    C = torch.as_tensor(np.where(lp.c != 0, lp.c * rng.lognormal(
+        0.0, 0.15, (B, lp.n)), 0.0), dtype=torch.float32, device=dev)
+    Q, L, U = (torch.as_tensor(np.tile(a, (B, 1)), dtype=torch.float32,
+                               device=dev) for a in (lp.q, lp.l, lp.u))
+    consts = (solver.dr, solver.dc)
+    args = (op, C, Q, L, U, *consts)
+    base = sv.run_chunk(*args, solver.eta, sv.init_state(*args), WARM_ITERS)
+    base.cadence.fill_(sv.sub)
+    t = sv._context(C, Q, L, U, *consts)
+    lim = torch.tensor(int(base.total.max()) + 4096, dtype=torch.int32,
+                       device=dev)
+    work = base.map(torch.clone)
+    status = torch.empty(5 + B, dtype=torch.int32, device=dev)
+
+    def restore(src=base):
+        for f in pdhg._State._fields:
+            getattr(work, f).copy_(getattr(src, f))
+
+    def check_window():
+        restore()
+        fc.check_window(op, t, work, solver.eta, *consts, lim, sv.n_eq,
+                        sv.check_ints, sv.check_floats)
+
+    def plain_window():
+        restore()
+        sv.plain_window(op, t, work, solver.eta, *consts, lim, 1, out=work)
+
+    def chunk():
+        fc.window_chunk(op, t, work, solver.eta, lim, sv.n_eq, sv.sub, 0,
+                        sv.adaptive, sv.variant, sv.alpha)
+
+    kname = fc.kernel_for(op)
+    out = {"m": lp.m, "n": lp.n, "B": B}
+    out["check_ms"] = device_ms(check_window, reps, "check_window_kernel")
+    out["status_ms"] = device_ms(
+        lambda: fc.window_status(work.converged, work.infeasible, work.total,
+                                 work.cadence, lim, sv.sub, sv.adaptive,
+                                 status), reps, "window_status_kernel")
+    copies = device_ms(restore, reps)
+    out["plain_check_ms"] = (device_ms(plain_window, reps)
+                             - device_ms(plain_window, reps, kname) - copies)
+    out["plain_status_ms"] = device_ms(lambda: sv.plain_status(work, lim),
+                                       reps)
+    restore()
+    out["chunk_active_ms"] = device_ms(chunk, reps, kname)
+    half = base.map(torch.clone)
+    half.converged[::2] = True
+    restore(half)
+    out["chunk_half_converged_ms"] = device_ms(chunk, reps, kname)
+    check(all(v is not None for v in out.values()),
+          f"window timing {lp.m}x{lp.n} B={B}: the profiler recorded no "
+          f"device time ({out})")
+    k_bytes = fc.matrix_work(op)[0]
+    check_bytes = B * (4 * (6 * lp.n + 4 * lp.m) + 2 + 4 * 24) \
+        + 4 * (lp.n + lp.m) + k_bytes
+    out["check_bound_ms"] = check_bytes / PEAK_BYTES_PER_S * 1e3
+    out["status_bound_ms"] = (B * 10 + 4 * (5 + B)) / PEAK_BYTES_PER_S * 1e3
+    return out
+
+
+def window_phase(records):
+    """Phase 2, continued: the check window in the kernels
+    (``_Solver.window`` and ``status``: the chunk kernel with its activity
+    predicate, the check kernel, the status kernel) against the plain
+    window (``plain_window`` and ``plain_status``) at the main paths'
+    shapes (``WINDOW_SHAPES``) under ``WINDOW_OPTS``, then timed
+    (``window_timing``).  Adds a record for each new kernel to
+    ``records``, and the chunk kernels' times with the predicate to
+    theirs."""
+    import dataclasses
+    from dervet_tpu_torch.ops import fused_chunk as fc
+    from dervet_tpu_torch.ops.pdhg import CompiledLPSolver, PDHGOptions
+    tests = card_tests()
+    source = "dervet_tpu_torch/ops/csrc/fused_chunk.cu"
+    recs = {k: records.setdefault(k, {
+        "name": k, "route": "cuda", "source": source, "replaces": None,
+        "launches": 0, "compared": [], "shapes": []})
+        for k in fc.WINDOW_KERNELS}
+    failures, lps = [], {}
+    for name, B in WINDOW_SHAPES:
+        if name not in lps:
+            lps[name] = window_shape_lp(name)
+        lp = lps[name]
+        solver = CompiledLPSolver(lp, PDHGOptions(), device="cuda")
+        kname = fc.kernel_for(solver.op)
+        check(solver._solver.use_kernel,
+              f"window {name}: the kernels decline {lp.m}x{lp.n}")
+        for kw, converging in (WINDOW_OPTS if B > WINDOW_COMPARE_MIN
+                               else ()):
+            sv = (solver.with_options(dataclasses.replace(solver.opts, **kw))
+                  if kw else solver)
+            what = (f"{name} {lp.m}x{lp.n} B={B} {sv.opts.variant}/"
+                    f"{sv.opts.restart_scheme}"
+                    f"{' converging' if converging else ''}")
+            t0 = time.perf_counter()
+            try:
+                got = tests.window_comparison(sv, B, seed=B,
+                                              converging=converging)
+            except AssertionError as e:
+                failures.append(f"{what}: {str(e)[:400]}")
+                log(f"[window] {what}: DIFFERS ({str(e)[:400]})")
+                continue
+            log(f"[window] {what} against the plain window: {got} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for k in fc.WINDOW_KERNELS:
+                recs[k]["compared"].append({"shape": what, **got})
+        tm = window_timing(solver, B)
+        log(f"[window] {name} {lp.m}x{lp.n} B={B} ({kname}): "
+            f"{json.dumps(tm)}")
+        shape = {"structure": name, "m": lp.m, "n": lp.n, "B": B}
+        recs[fc.KERNEL_CHECK]["shapes"].append({
+            **shape, "ms": tm["check_ms"], "plain_ms": tm["plain_check_ms"],
+            "bound_ms": tm["check_bound_ms"], "bound_by": "bytes"})
+        recs[fc.KERNEL_STATUS]["shapes"].append({
+            **shape, "ms": tm["status_ms"], "plain_ms": tm["plain_status_ms"],
+            "bound_ms": tm["status_bound_ms"], "bound_by": "bytes"})
+        records[kname].setdefault("window_shapes", []).append({
+            **shape, "iters": solver._solver.sub,
+            "active_ms": tm["chunk_active_ms"],
+            "half_converged_ms": tm["chunk_half_converged_ms"]})
+    for rec in recs.values():
+        # the kernels line's own fields, from the sweep's batch
+        first = rec["shapes"][0]
+        rec.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")})
+        rec["shape"] = {k: first[k] for k in ("m", "n", "B")}
+    if failures:
+        raise AssertionError("the check window's kernels disagree with the "
+                             "plain window: " + "; ".join(failures))
 
 
 def seeded_inputs(solver, B, seed):
@@ -1203,13 +1428,26 @@ def main_phases(records, checked, profile=False):
     cases = benchlib.synthetic_sensitivity_cases(MAIN_CASES,
                                                  daily_cycle_limit=1)
     fc.reset_launch_counts()
+    d0 = driver_counts()
     if profile:
         res, wall = profiled(lambda: solve_cases(cases, "torch"))
     else:
         res, wall = solve_cases(cases, "torch")
     launches = dict(fc.LAUNCHES)
+    window = dict(fc.WINDOW_LAUNCHES)
+    drv = {k: v - d0[k] for k, v in driver_counts().items()}
     log(f"[main] {MAIN_CASES} cases x 12 months: {wall:.2f} s wall, "
-        f"launches {launches}")
+        f"launches {launches}, check-window kernels {window}")
+    # every window of the path runs in the kernels: a check kernel each
+    # window and each capture's warm-up window (one chunk launch each), a
+    # status kernel each window and each chunk's first status
+    want = {fc.KERNEL_CHECK: drv["check_windows"] + drv["warmup_launches"],
+            fc.KERNEL_STATUS: drv["check_windows"] + drv["chunks"]}
+    check(window == want, f"main: check-window kernel launches {window}, "
+                          f"expected {want} from {drv}")
+    for name, n in window.items():
+        records[name]["launches"] = n
+        records[name].setdefault("launches_by_run", {})["main"] = n
     check_certified(res, MAIN_CASES * 12, "main")
     check_ledger(res, fc.KERNEL_BANDED, checked[fc.KERNEL_BANDED], "main")
     check(launches[fc.KERNEL_BANDED] > 0, "banded kernel never launched")
@@ -1313,7 +1551,7 @@ def walk_phase(res, calls, what):
             return rel.min_soe_schedule(s.ders, s.index)["soe"].to_numpy()
 
         walks = {
-            f"LCPC walk L={L}": lambda: rel._walk(mix, init, L),
+            f"LCPC walk L={L}": lambda: rel._walk(mix, init, L, "coverage"),
             f"min-SOE schedule L={rel.coverage_steps}":
                 lambda: schedule(False),
             f"exact min-SOE schedule L={rel.coverage_steps}":
@@ -2760,12 +2998,12 @@ def fleet_phase(records, pairs):
                     drv[k] += (led.get("totals") or {}).get(k, 0)
             log(f"[fleet] {name}: launches {by}; from its ledgers "
                 f"{driver_line({}, drv)}")
-        check(all(total.get(k) for k in records),
+        check(all(total.get(k) for k in fc.KERNELS),
               f"fleet: a kernel never launched on the replicas {total}")
         check(sorted(p.name for p in lib.parent.glob(
             "libfused_chunk-*.so")) == built,
             "fleet: a replica built the kernel library again")
-        for k in records:
+        for k in fc.KERNELS:
             records[k].setdefault("launches_by_run", {})["fleet"] = \
                 total.get(k, 0)
         log(f"[fleet] request latencies {json.dumps(lat)}")
@@ -3099,7 +3337,8 @@ def launch_widths():
 
         def record_replay(counts):
             replay(counts)
-            seen.update(counts)
+            # a window's graph also holds the check and status kernels
+            seen.update(k for k in counts if k[0] in fc.KERNELS)
         fc._launch, fc.add_launches = record, record_replay
         try:
             yield seen
@@ -3460,6 +3699,69 @@ def eager_pass(jobs, n_scen, seed):
     return [type(res)(*(f.cpu() for f in res)) for res in out], wall, peaks
 
 
+def plain_pass(jobs, n_scen, seed):
+    """``eager_pass`` on the plain window (``_Solver.plain_window`` and
+    ``plain_status``: the chunk kernel on every instance, then PyTorch's
+    check and select, as the window ran before the check window's
+    kernels), on the same draws."""
+    solvers = [job["solver"]._solver for job in jobs]
+    for sv in solvers:
+        sv.on_card = lambda x: False
+    try:
+        return eager_pass(jobs, n_scen, seed)
+    finally:
+        for sv in solvers:
+            del sv.on_card
+
+
+def compare_plain(jobs, out, ref, n_scen, fault, what):
+    """A pass's answers (``out``: (C, result, stats) a group) against the
+    plain window's on the same draws (``ref``): the objectives of the
+    instances both converged within the certificate's objective
+    tolerance; every status equal, and iteration counts within one window
+    (``check_every``) of each other for at least
+    NORTHSTAR_PLAIN_ITERS_SHARE of the instances -- in the run with the
+    recorded open fault, outside its September window, whose tail of
+    tens of thousands of iterations (both packages) carries a rounding
+    difference into another restart; there both are printed."""
+    import numpy as np
+    from dervet_tpu_torch.ops import certify
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    eps = certify.CertPolicy().eps_obj
+    window = PDHGOptions().check_every
+    for job, (_, res, _), r in zip(jobs, out, ref):
+        keep = np.ones(res.status.shape[0], bool)
+        fw_T, fw_i = NORTHSTAR_FAULT_WINDOW
+        if fault and job["T"] == fw_T:
+            keep[fw_i * n_scen:(fw_i + 1) * n_scen] = False
+        status, status_p = res.status.cpu().numpy(), r.status.numpy()
+        differ = np.nonzero((status != status_p) & keep)[0]
+        both = res.converged.cpu().numpy() & r.converged.numpy()
+        a, b = res.obj.cpu().numpy(), r.obj.numpy()
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+        worst = float(rel[both].max()) if both.any() else 0.0
+        gap = np.abs(res.iters.cpu().numpy().astype(np.int64)
+                     - r.iters.numpy().astype(np.int64))
+        share = float(np.mean(gap[keep] <= window))
+        log(f"[northstar]   {what} T={job['T']} against the plain window: "
+            f"{differ.size} statuses differ, objective rel max {worst:.3e} "
+            f"(limit {eps}), iterations within {window} for "
+            f"{100 * share:.2f}% (max gap {int(gap[keep].max())})"
+            + (f"; in the fault window "
+               f"{int(((status != status_p) & ~keep).sum())} statuses "
+               f"differ, iterations within {window} for "
+               f"{100 * float(np.mean(gap[~keep] <= window)):.2f}% (max gap "
+               f"{int(gap[~keep].max())})" if not keep.all() else ""))
+        check(differ.size == 0, f"{what} T={job['T']}: instances "
+                                f"{differ[:8].tolist()} end in another "
+                                "status than on the plain window")
+        check(worst <= eps, f"{what} T={job['T']}: objective rel {worst:.3e} "
+                            "from the plain window's")
+        check(share >= NORTHSTAR_PLAIN_ITERS_SHARE,
+              f"{what} T={job['T']}: {share:.4f} of the instances within "
+              "one window of the plain window's iterations")
+
+
 def fault_only(cert):
     """A rejection for the recorded open fault alone: the primal violation
     is worst on the CHP heat-recovery row, and the objective, the dual
@@ -3587,11 +3889,14 @@ def northstar_phase(records, pairs):
         # the eager window loop's passes first, while the solvers hold no
         # graph runner: their answers, walls and memory peaks are what
         # the graph passes are held against
-        eager = {}
+        eager, plain = {}, {}
         for seed in seeds:
             gc.collect()
             torch.cuda.empty_cache()
             eager[seed] = eager_pass(jobs, n_scen, seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain[seed] = plain_pass(jobs, n_scen, seed)
         for p, seed in enumerate(seeds):
             torch.cuda.synchronize()
             gc.collect()
@@ -3647,6 +3952,11 @@ def northstar_phase(records, pairs):
                 f"{reserved_e / 2 ** 30:.3f} GiB); graphs against it: "
                 f"allocated x{peak / peak_e:.2f}, reserved "
                 f"x{peak_reserved / reserved_e:.2f}")
+            ref, wall_p, (peak_p, _) = plain.pop(seed)
+            log(f"[northstar] {what}: the plain window on the same draws: "
+                f"wall {wall_p:.3f} s (eager loop), peak device memory "
+                f"{peak_p / 2 ** 30:.3f} GiB")
+            compare_plain(jobs, out, ref, n_scen, fault, what)
             del ref
             samples = ""
             if p == 0:
@@ -3886,14 +4196,18 @@ def main() -> int:
     log(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
     report = ptxas_report(fc.BUILD_LOG)
     for rec in report:
-        v, t, cpt, rpt, minb = rec["template"]
-        log(f"[build] {rec['kernel']}<variant={v}, threads={t}, "
-            f"cols/thread={cpt}, rows/thread={rpt}, blocks/SM={minb}>"
-            f"{' (state in shared memory)' if cpt == 0 else ''}: "
-            f"{rec['registers']} "
+        if len(rec["template"]) == 5:
+            v, t, cpt, rpt, minb = rec["template"]
+            what = (f"<variant={v}, threads={t}, cols/thread={cpt}, "
+                    f"rows/thread={rpt}, blocks/SM={minb}>"
+                    f"{' (state in shared memory)' if cpt == 0 else ''}")
+        else:
+            what = "".join(f"<fixed_point={v}>" for v in rec["template"])
+        log(f"[build] {rec['kernel']}{what}: {rec['registers']} "
             f"registers, {rec['stack']} B stack, {rec['spill_stores']} B "
             f"spill stores, {rec['spill_loads']} B spill loads")
-    check(len(report) == 2 * 3 * len(fc.CONFIGS),
+    # the chunk kernels' instances, two check kernels and the status one
+    check(len(report) == 2 * 3 * len(fc.CONFIGS) + 3,
           f"ptxas reported {len(report)} kernel instances")
     spilled = [r for r in report if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"kernel instances spill registers: {spilled}")

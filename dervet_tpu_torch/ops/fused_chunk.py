@@ -11,13 +11,23 @@ both in ``csrc/fused_chunk.cu``:
 * ``dense_chunk`` — the dense op's K (``DenseOp``, short windows such as
   weekly).
 
+In a check window on the card (``pdhg._Solver.window``) the chunk kernels
+run in place on the solve's state with a per-instance activity predicate
+(:func:`window_chunk`), and two more kernels of the same source finish
+the window: ``check_window`` (the restart, primal-weight and convergence
+update of each active instance, :func:`check_window`) and
+``window_status`` (the status the host reads, :func:`window_status`).
+Their plain versions are ``pdhg._Solver.plain_window`` and
+``plain_status``; ``WINDOW_LAUNCHES`` counts their launches.
+
 The kernels read K's non-zeros only: the band diagonals, and the wide
 pair (banded) or all of K (dense) in the compact forms ``CompactK`` that
 ``pdhg`` builds once per operator.  ``compact_matvec``/``compact_rmatvec``
 apply those forms with the kernels' indexing, so the CPU tests check the
-layout.  Each wrapper takes its plain PyTorch version (on the dense
-``wide_w``/``Kh``) only for tensors on the CPU (the tests); for CUDA
-tensors it launches its kernel or raises — there is no fallback.
+layout.  :func:`batched_chunk` takes the plain PyTorch version (on the
+dense ``wide_w``/``Kh``) only for tensors on the CPU; for CUDA tensors
+it, like every wrapper, launches its kernel or raises — there is no
+fallback.
 ``LAUNCHES`` counts kernel launches per kernel, incremented at the
 launch and nowhere else.  A launch made while its thread captures a CUDA
 graph runs nothing: it is recorded for the graph (:func:`recording`),
@@ -50,6 +60,21 @@ _VARIANT_CODE = {VANILLA: 0, REFLECTED: 1, HALPERN: 2}
 KERNEL_BANDED = "banded_chunk"
 KERNEL_DENSE = "dense_chunk"
 KERNELS = (KERNEL_BANDED, KERNEL_DENSE)
+# the check window's own kernels (launched by pdhg._Solver.window and
+# .status on the card beside the chunk kernels; counted apart from them)
+KERNEL_CHECK = "check_window"
+KERNEL_STATUS = "window_status"
+WINDOW_KERNELS = (KERNEL_CHECK, KERNEL_STATUS)
+# the state fields the check kernel updates, in the order its entry
+# takes them (pdhg._State._fields)
+CHECK_STATE = ("x", "y", "x_sum", "y_sum", "inner", "total", "omega",
+               "x_restart", "y_restart", "mu_restart", "mu_prev",
+               "converged", "done_x", "done_y", "iters_at_conv",
+               "infeas_streak", "infeasible", "restarts", "cadence")
+# the window's tensors that are not float32 (its counts and flags)
+_WINDOW_DTYPES = {k: torch.int32 for k in (
+    "inner", "total", "cadence", "limit", "iters_at_conv", "infeas_streak",
+    "restarts", "out")} | {"converged": torch.bool, "infeasible": torch.bool}
 
 # shared memory one thread block may use on an H100 (227 KB); one block
 # holds one instance, so a shape whose shared state exceeds this is
@@ -79,6 +104,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {k: 0 for k in KERNELS}
+WINDOW_LAUNCHES = {k: 0 for k in WINDOW_KERNELS}
 _launch_lock = threading.Lock()
 # per thread: the launches recorded into the graph it is capturing
 _capture = threading.local()
@@ -89,8 +115,13 @@ BUILD_LOG = ""
 
 def reset_launch_counts() -> None:
     with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, WINDOW_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+
+def _counts_of(kernel: str) -> dict:
+    return LAUNCHES if kernel in LAUNCHES else WINDOW_LAUNCHES
 
 
 def _count_launch(kernel: str, m: int, n: int, B: int) -> None:
@@ -100,7 +131,7 @@ def _count_launch(kernel: str, m: int, n: int, B: int) -> None:
         tally[key] = tally.get(key, 0) + 1
         return
     with _launch_lock:
-        LAUNCHES[kernel] += 1
+        _counts_of(kernel)[kernel] += 1
 
 
 @contextlib.contextmanager
@@ -121,7 +152,7 @@ def add_launches(counts: dict) -> None:
     (``counts`` as :func:`recording` gave them)."""
     with _launch_lock:
         for (kernel, *_), n in counts.items():
-            LAUNCHES[kernel] += n
+            _counts_of(kernel)[kernel] += n
 
 
 # ---------------------------------------------------------------------------
@@ -158,16 +189,16 @@ def halo(offsets, m: int, n: int) -> tuple[int, int]:
 def smem_bytes(m: int, n: int, offsets=(), part=None,
                variant: str = VANILLA, shared: bool = False) -> int:
     """One block's shared memory (mirrors ``smem_words`` in the CUDA
-    source).  Register configurations: c, l, u, x_sum and 2x1-x with its
-    halo (x space); y and the band diagonals (y space); both compact
-    forms of ``part``; under halpern the restart anchors.  The rest of
-    the state lives in registers.  ``shared``, the shared-state
+    source).  Register configurations: tau and sigma (4 words); c, l, u,
+    x_sum and 2x1-x with its halo (x space); y and the band diagonals (y
+    space); both compact forms of ``part``; under halpern the restart
+    anchors.  The rest of the state lives in registers.  ``shared``, the shared-state
     configuration: x, x_sum, 2x1-x, c, l, u and y, y_sum, q; it reads K
     and the halpern anchors through L1/L2."""
     if shared:
         return 4 * (6 * n + 3 * m)
     hl, hr = halo(offsets, m, n)
-    words = 5 * n + hl + hr + m + len(offsets) * m
+    words = 4 + 5 * n + hl + hr + m + len(offsets) * m
     if part is not None:
         words += sum(t.numel() for t in _tensors(part)) - part.row_slot.numel()
     if variant == HALPERN:
@@ -411,14 +442,21 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # state (13 in, 4 out), compact forms (7), their sizes and
-            # the shape (9), the step variant, the thread configuration
-            common = [P] * 17 + [P] * 7 + [I] * 9 + [I, F] + [I] * 4
+            # state (10 in, 4 out), compact forms (7), their sizes and
+            # the shape (9), the step variant, the thread configuration,
+            # the step sizes' and the check window's pointers and numbers
+            common = [P] * 14 + [P] * 7 + [I] * 9 + [I, F] + [I] * 4 \
+                + [P, P]
             lib.banded_chunk.argtypes = (
                 common + [P, ctypes.POINTER(I), I] + [P])
             lib.banded_chunk.restype = I
             lib.dense_chunk.argtypes = common + [P]
             lib.dense_chunk.restype = I
+            lib.check_window.argtypes = [P, P, P, P, ctypes.POINTER(I), I,
+                                         P, P, I, I, I, P]
+            lib.check_window.restype = I
+            lib.window_status.argtypes = [P, P, P, P, P, I, I, I, P, P]
+            lib.window_status.restype = I
             lib.fused_chunk_error_string.argtypes = [I]
             lib.fused_chunk_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -434,14 +472,17 @@ _FORMS = ("row_slot", "indptr", "row_cols", "row_vals", "col_ptr",
 _INT_KEYS = ("row_slot", "indptr", "row_cols", "col_ptr", "col_rows")
 
 
-def _check(name: str, device, tensors: dict, shapes: dict) -> None:
+def _check(name: str, device, tensors: dict, shapes: dict,
+           dtypes: Optional[dict] = None) -> None:
+    dtypes = dtypes or {}
     for key, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"{device}")
-        want = torch.int32 if key in _INT_KEYS else torch.float32
+        want = dtypes.get(key, torch.int32 if key in _INT_KEYS
+                          else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -458,11 +499,24 @@ def _raise_on(lib, name: str, err: int) -> None:
                            f"{err} ({msg})")
 
 
+# the check window's chunk inputs, in the order the entry takes them
+_WINDOW_PTRS = ("omega", "eta", "inner", "total", "cadence", "limit",
+                "converged", "infeasible")
+
+
 def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
             n_eq: int, iters: int, variant: str, alpha: float,
-            diags=None, offsets=()):
+            window: dict, diags=None, offsets=(),
+            out: Optional[tuple] = None):
     """Check the arguments of either kernel and launch it on the current
-    stream; returns (x, y, x_sum, y_sum)."""
+    stream; returns (x, y, x_sum, y_sum), into ``out`` when given (which
+    may be the inputs themselves: one block reads and writes only its
+    own instance).  ``window`` gives the step sizes, ``omega`` and
+    ``eta`` (tau = eta/omega, sigma = eta*omega), and under halpern the
+    inner count ``inner`` (plus ``k_off``); in a check window also
+    ``total``, ``cadence``, ``limit``, ``converged`` and ``infeasible``,
+    the instances that advance this sub-block (``block`` of ``n_sub``,
+    counting ``sub`` iterations, ``adaptive`` cadence)."""
     x = state["x"]
     cfg = None
     if variant in VARIANTS and len(offsets) <= MAX_BANDS:
@@ -475,24 +529,38 @@ def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
     nnz = part.nnz
     shapes = {"c": (B, n), "l": (B, n), "u": (B, n), "x": (B, n),
               "xs": (B, n), "q": (B, m), "y": (B, m), "ys": (B, m),
-              "tau": (B,), "sig": (B,), "diags": (len(offsets), m),
+              "diags": (len(offsets), m),
               "row_slot": (m,), "indptr": (r + 1,), "row_cols": (nnz,),
               "row_vals": (nnz,), "col_ptr": (nc + 1,), "col_rows": (nnz,),
-              "col_vals": (nnz,)}
+              "col_vals": (nnz,), "omega": (B,), "eta": (), "inner": (B,),
+              "total": (B,), "cadence": (B,), "limit": (),
+              "converged": (B,), "infeasible": (B,)}
     if variant == HALPERN:
-        shapes.update({"k0": (B,), "ax": (B, n), "ay": (B, m)})
+        shapes.update({"ax": (B, n), "ay": (B, m)})
     else:
-        state = {**state, "k0": None, "ax": None, "ay": None}
+        state = {**state, "ax": None, "ay": None}
     forms = dict(zip(_FORMS, _tensors(part)))
-    _check(kernel, x.device, {**state, "diags": diags, **forms}, shapes)
+    win = {k: window.get(k) for k in _WINDOW_PTRS}
+    _check(kernel, x.device, {**state, "diags": diags, **forms, **win},
+           shapes, _WINDOW_DTYPES)
     lib = _load()
-    out = [torch.empty_like(x), torch.empty_like(state["y"]),
-           torch.empty_like(x), torch.empty_like(state["y"])]
-    args = [_ptr(state[k]) for k in ("c", "q", "l", "u", "tau", "sig", "x",
-                                     "y", "xs", "ys", "k0", "ax", "ay")]
+    if out is None:
+        out = (torch.empty_like(x), torch.empty_like(state["y"]),
+               torch.empty_like(x), torch.empty_like(state["y"]))
+    else:
+        _check(kernel, x.device, dict(zip(("x", "y", "xs", "ys"), out)),
+               shapes)
+    args = [_ptr(state[k]) for k in ("c", "q", "l", "u", "x", "y", "xs",
+                                     "ys", "ax", "ay")]
     args += [_ptr(t) for t in out] + [_ptr(t) for t in forms.values()]
     args += [r, nnz, part.col_lo, nc, B, m, n, int(n_eq), int(iters),
              _VARIANT_CODE[variant], float(alpha), *cfg]
+    ptrs = (ctypes.c_void_p * len(_WINDOW_PTRS))(
+        *(_ptr(win[k]) for k in _WINDOW_PTRS))
+    nums = (ctypes.c_int * 4)(*(int(window.get(k, 0)) for k in
+                                ("k_off", "block", "sub", "adaptive")))
+    args += [ctypes.cast(ptrs, ctypes.c_void_p),
+             ctypes.cast(nums, ctypes.c_void_p)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kernel == KERNEL_BANDED:
@@ -506,45 +574,13 @@ def _launch(kernel: str, state: dict, part, B: int, m: int, n: int,
     return tuple(out)
 
 
-def banded_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq: int,
-                 iters: int, variant: str = VANILLA, alpha: float = 1.0,
-                 k0=None, ax=None, ay=None):
-    """``iters`` iterations of the banded chunk for the ``BandedOp``
-    ``op``: per-instance (B, ·) f32 state; ``tau``, ``sig``, ``k0`` (B,).
-    CPU tensors run the plain version (with the dense wide pair); CUDA
-    tensors launch the kernel, which reads the band diagonals and the
-    wide pair's compact forms (``op.compact``)."""
-    if x.device.type == "cpu":
-        return banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys,
-                                  op.diags, op.offsets, op.wide_rows,
-                                  op.wide_w, n_eq, iters, variant, alpha,
-                                  k0, ax, ay)
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_chunk: unsupported device {x.device}")
-    return _launch(KERNEL_BANDED, dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig,
-                                       x=x, y=y, xs=xs, ys=ys, k0=k0, ax=ax,
-                                       ay=ay),
-                   op.compact, x.shape[0], op.m, op.n, n_eq, iters, variant,
-                   alpha, op.diags, op.offsets)
-
-
-def dense_chunk(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq: int,
-                iters: int, variant: str = VANILLA, alpha: float = 1.0,
-                k0=None, ax=None, ay=None):
-    """``iters`` iterations of the dense chunk for the ``DenseOp`` ``op``.
-    CPU tensors run the plain version (with the dense ``Kh``); CUDA
-    tensors launch the kernel, which reads K's compact forms
-    (``op.compact``)."""
-    if x.device.type == "cpu":
-        return dense_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, op.Kh,
-                                 n_eq, iters, variant, alpha, k0, ax, ay)
-    if x.device.type != "cuda":
-        raise ValueError(f"dense_chunk: unsupported device {x.device}")
+def _op_args(op) -> tuple:
+    """(kernel, m, n, diags, offsets) of the op a chunk kernel takes."""
+    from .pdhg import BandedOp
+    if isinstance(op, BandedOp):
+        return KERNEL_BANDED, op.m, op.n, op.diags, op.offsets
     m, n = op.Kh.shape
-    return _launch(KERNEL_DENSE, dict(c=c, q=q, l=l, u=u, tau=tau, sig=sig,
-                                      x=x, y=y, xs=xs, ys=ys, k0=k0, ax=ax,
-                                      ay=ay),
-                   op.compact, x.shape[0], m, n, n_eq, iters, variant, alpha)
+    return KERNEL_DENSE, m, n, None, ()
 
 
 def batched_chunk(op, c, q, l, u, omega, eta, x, y, xs, ys, n_eq: int,
@@ -552,19 +588,133 @@ def batched_chunk(op, c, q, l, u, omega, eta, x, y, xs, ys, n_eq: int,
                   k=None, ax=None, ay=None):
     """Run ``iters`` iterations for the whole batch through the kernel
     that takes ``op`` (see :func:`supports`).  Data args are (B, ·);
-    ``omega`` (B,), ``eta`` a scalar tensor.  Computes tau = eta/omega
-    and sigma = eta*omega per instance; halpern takes the inner count
-    ``k`` (B,) and the restart anchors ``ax``/``ay``, which only move
-    between chunks.  The caller advances ``k`` by ``iters``."""
-    from .pdhg import BandedOp
-    tau = (eta / omega).to(torch.float32).contiguous()
-    sig = (eta * omega).to(torch.float32).contiguous()
-    k0 = k.to(torch.float32).contiguous() if variant == HALPERN else None
+    ``omega`` (B,), ``eta`` a scalar tensor.  tau = eta/omega and sigma =
+    eta*omega per instance; halpern takes the inner count ``k`` (B,)
+    int32 and the restart anchors ``ax``/``ay``, which only move between
+    chunks.  The caller advances ``k`` by ``iters``.  CPU tensors run the
+    plain version (on the dense wide pair or ``Kh``); CUDA tensors launch
+    the kernel, which computes the step sizes and the halpern count
+    itself."""
     if variant != HALPERN:
         ax = ay = None
-    run = banded_chunk if isinstance(op, BandedOp) else dense_chunk
-    return run(c, q, l, u, tau, sig, x, y, xs, ys, op, n_eq, iters, variant,
-               alpha, k0, ax, ay)
+    kernel, m, n, diags, offsets = _op_args(op)
+    if x.device.type == "cpu":
+        tau, sig = eta / omega, eta * omega
+        k0 = k.to(torch.float32) if variant == HALPERN else None
+        if kernel == KERNEL_BANDED:
+            return banded_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys,
+                                      op.diags, op.offsets, op.wide_rows,
+                                      op.wide_w, n_eq, iters, variant, alpha,
+                                      k0, ax, ay)
+        return dense_chunk_plain(c, q, l, u, tau, sig, x, y, xs, ys, op.Kh,
+                                 n_eq, iters, variant, alpha, k0, ax, ay)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_chunk: unsupported device {x.device}")
+    inner = k if variant == HALPERN else None
+    return _launch(kernel, dict(c=c, q=q, l=l, u=u, x=x, y=y, xs=xs, ys=ys,
+                                ax=ax, ay=ay),
+                   op.compact, x.shape[0], m, n, n_eq, iters, variant,
+                   alpha, dict(omega=omega, eta=eta, inner=inner), diags,
+                   offsets)
+
+
+def window_chunk(op, ctx, s, eta, limit, n_eq: int, sub: int, block: int,
+                 adaptive: bool, variant: str = VANILLA,
+                 alpha: float = 1.0) -> None:
+    """Sub-block ``block`` of a check window, in place on the state ``s``
+    (a ``pdhg._State`` on the card; ``ctx`` its ``pdhg._Context``): the
+    ``sub`` iterations of every instance active under ``limit`` (a device
+    int32 scalar) whose ``n_sub`` exceeds ``block``.  The other blocks
+    return at once, so finished and held instances keep their state.
+    The halpern count is ``s.inner + block * sub``, the anchors the
+    restart point."""
+    kernel, m, n, diags, offsets = _op_args(op)
+    halp = variant == HALPERN
+    _launch(kernel, dict(c=ctx.c_s, q=ctx.q_s, l=ctx.l_s, u=ctx.u_s,
+                         x=s.x, y=s.y, xs=s.x_sum, ys=s.y_sum,
+                         ax=s.x_restart if halp else None,
+                         ay=s.y_restart if halp else None),
+            op.compact, s.x.shape[0], m, n, n_eq, sub, variant, alpha,
+            dict(omega=s.omega, eta=eta, inner=s.inner, total=s.total,
+                 cadence=s.cadence, limit=limit, converged=s.converged,
+                 infeasible=s.infeasible, k_off=block * sub, block=block,
+                 sub=sub, adaptive=int(adaptive)),
+            diags, offsets, out=(s.x, s.y, s.x_sum, s.y_sum))
+
+
+def check_window(op, ctx, s, eta, dr, dc, limit, n_eq: int, ints: tuple,
+                 floats: tuple) -> None:
+    """The check after a window's sub-blocks, in place on the state ``s``
+    (``pdhg._State`` on the card, ``ctx`` its ``pdhg._Context``): one
+    block an instance runs ``pdhg._Solver._body`` after ``advance`` for
+    the instances active under ``limit`` and leaves the others as they
+    were.  ``ints``: sub, adaptive, cadence cap, infeasibility checks,
+    fixed-point restart; ``floats``: eps_abs, eps_rel, eps_infeas,
+    beta_sufficient, beta_necessary, fp_beta_sufficient, the artificial
+    restart fraction, the primal weight smoothing."""
+    kernel, m, n, diags, offsets = _op_args(op)
+    B = s.x.shape[0]
+    part = op.compact
+    state = {f: getattr(s, f) for f in CHECK_STATE}
+    vec = {"x": n, "x_sum": n, "x_restart": n, "done_x": n, "y": m,
+           "y_sum": m, "y_restart": m, "done_y": m}
+    shapes = {f: (B, vec[f]) if f in vec else (B,) for f in CHECK_STATE}
+    cx = dict(c=ctx.c_us, q=ctx.q_us, l=ctx.l_us, u=ctx.u_us,
+              q_norm=ctx.q_norm, c_norm=ctx.c_norm, omega_lo=ctx.omega_lo,
+              omega_hi=ctx.omega_hi, dr=dr, dc=dc, eta=eta, limit=limit)
+    shapes.update(c=(B, n), q=(B, m), l=(B, n), u=(B, n), q_norm=(B,),
+                  c_norm=(B,), omega_lo=(B,), omega_hi=(B,), dr=(m,),
+                  dc=(n,), eta=(), limit=(), diags=(len(offsets), m))
+    forms = dict(zip(_FORMS, _tensors(part)))
+    _check(KERNEL_CHECK, s.x.device, {**state, **cx, "diags": diags,
+                                      **forms}, shapes, _WINDOW_DTYPES)
+    lib = _load()
+
+    def arr(ptrs):
+        a = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        return a, ctypes.cast(a, ctypes.c_void_p)
+    st_a, st_p = arr([_ptr(state[f]) for f in CHECK_STATE])
+    cx_a, cx_p = arr([_ptr(t) for t in cx.values()])
+    fm_a, fm_p = arr([_ptr(t) for t in forms.values()])
+    ints = (ctypes.c_int * 8)(int(n_eq), part.col_lo,
+                              part.col_ptr.shape[0] - 1, *map(int, ints))
+    floats = (ctypes.c_float * 8)(*map(float, floats))
+    offs = (ctypes.c_int * max(1, len(offsets)))(*offsets)
+    with torch.cuda.device(s.x.device):
+        stream = torch.cuda.current_stream(s.x.device).cuda_stream
+        err = lib.check_window(st_p, cx_p, fm_p, _ptr(diags), offs,
+                               len(offsets), ctypes.cast(ints,
+                                                         ctypes.c_void_p),
+                               ctypes.cast(floats, ctypes.c_void_p), B, m,
+                               n, stream)
+    _raise_on(lib, KERNEL_CHECK, err)
+    _count_launch(KERNEL_CHECK, m, n, B)
+
+
+def window_status(converged, infeasible, total, cadence, limit, sub: int,
+                  adaptive: bool, out=None) -> torch.Tensor:
+    """``pdhg._Solver.status`` on the card in one kernel: the (5 + B,)
+    int32 status of the state whose (B,) flags and counts are given,
+    into ``out`` when given."""
+    B = total.shape[0]
+    if out is None:
+        out = torch.empty(5 + B, dtype=torch.int32, device=total.device)
+    _check(KERNEL_STATUS, total.device,
+           dict(converged=converged, infeasible=infeasible, total=total,
+                cadence=cadence, limit=limit, out=out),
+           {"converged": (B,), "infeasible": (B,), "total": (B,),
+            "cadence": (B,), "limit": (), "out": (5 + B,)},
+           _WINDOW_DTYPES)
+    lib = _load()
+    with torch.cuda.device(total.device):
+        stream = torch.cuda.current_stream(total.device).cuda_stream
+        err = lib.window_status(*(_ptr(t) for t in (converged, infeasible,
+                                                     total, cadence, limit)),
+                                B, int(sub), int(adaptive), _ptr(out),
+                                stream)
+    _raise_on(lib, KERNEL_STATUS, err)
+    _count_launch(KERNEL_STATUS, 0, 0, B)
+    return out
 
 
 def matrix_work(op, needed: bool = False) -> tuple[int, int]:

@@ -23,17 +23,21 @@ chunk exactly when no instance is active.  The row-sharded solve
 (``parallel/timeshard.py``) keeps the eager window loop,
 :meth:`_Solver.run_chunk`.
 
-The iteration chunk (``sub`` PDHG iterations between restart checks)
-runs in the hand-written CUDA kernels of :mod:`.fused_chunk` when the op
-is banded or dense and fits one block's shared memory; an op the kernels
-do not take (an ELL residual, a footprint over budget) runs the plain
-PyTorch chunk, and the ledger records ``unsupported_shape``.
+The check window runs in the hand-written CUDA kernels of
+:mod:`.fused_chunk` when the op is banded or dense and fits one block's
+shared memory, on the card: ``n_max`` launches of the chunk kernel (each
+``sub`` PDHG iterations), one of the check kernel (the restart,
+primal-weight and convergence update) and one of the status kernel.  An
+op the kernels do not take (an ELL residual, a footprint over budget)
+runs the plain PyTorch window with the plain chunk, and the ledger
+records ``unsupported_shape``; CPU tensors run the plain window too.
 
 Per-instance masking: under ``vmap`` the JAX ``while_loop`` freezes each
 instance once ITS OWN condition fails (converged, infeasible, or the
 chunk's iteration limit).  The window reproduces that by applying its
 update only where the instance is still active, so finished instances
-do not drift and iteration counts match.
+do not drift and iteration counts match: the kernels' blocks of an
+inactive instance return at once, and the plain window selects.
 """
 from __future__ import annotations
 
@@ -592,7 +596,12 @@ class SolveStats:
     ``capture_s`` of host time (a thread's first for the solver after
     one eager warm-up window of one sub-block on the capture stream).
     ``kernel_launches`` counts the chunk-kernel launches of this solve,
-    replayed ones and the warm-ups' ``warmup_launches`` included."""
+    replayed ones and the warm-ups' ``warmup_launches`` included.
+    ``instance_windows`` sums the batch width over the check windows and
+    ``active_instance_windows`` the instances active in each (from the
+    status reads): their ratio, ``active_instance_share`` in
+    :meth:`as_dict`, is the share of the instance-windows that did work;
+    on the card the others skip the window in the kernels."""
     dispatches: int = 0
     chunks: int = 0
     compile_events: int = 0      # first execution of a (program, shape)
@@ -614,12 +623,17 @@ class SolveStats:
     graph_replays: int = 0
     capture_s: float = 0.0
     warmup_launches: int = 0
+    instance_windows: int = 0
+    active_instance_windows: int = 0
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
         for k in ("h2d_s", "sync_wait_s", "result_fetch_s", "capture_s"):
             d[k] = round(d[k], 4)
         d["bucket_occupancy"] = [list(b) for b in d["bucket_occupancy"]]
+        d["active_instance_share"] = (
+            round(self.active_instance_windows / self.instance_windows, 4)
+            if self.instance_windows else None)
         return d
 
 
@@ -881,6 +895,13 @@ class _Solver:
         self.cadence_cap = (ce // self.sub) * self.sub
         self.use_kernel = use_kernel and rows is None
         self.rows = rows if rows is not None else LOCAL_ROWS
+        # the check kernel's numbers (fused_chunk.check_window)
+        self.check_ints = (self.sub, int(self.adaptive), self.cadence_cap,
+                           int(opts.infeas_checks), int(self.fp_scheme))
+        self.check_floats = (
+            opts.eps_abs, opts.eps_rel, opts.eps_infeas, opts.beta_sufficient,
+            opts.beta_necessary, opts.fp_beta_sufficient,
+            opts.artificial_restart_frac, opts.primal_weight_smoothing)
         self.launches = 0
         # threads that ran the warm-up before a graph capture of this
         # solver (_WindowRunner._capture)
@@ -991,6 +1012,12 @@ class _Solver:
             return (s.cadence // self.sub).clamp_min(1)
         return torch.ones_like(s.cadence)
 
+    def on_card(self, x: torch.Tensor) -> bool:
+        """Whether the check windows of state ``x`` run the hand-written
+        kernels (a kernel-supported op on a CUDA device) rather than the
+        plain PyTorch window."""
+        return self.use_kernel and x.device.type == "cuda"
+
     def window(self, op, t: _Context, s: _State, eta, dr, dc, limit,
                n_max: int, out: Optional[_State] = None) -> _State:
         """One check window as a function of device tensors that reads
@@ -999,18 +1026,61 @@ class _Solver:
         advance a static ``n_max`` sub-blocks, each instance its own
         ``n_sub`` of them, then take the restart, primal-weight and
         convergence update; the others keep their state.  ``out``: write
-        the new state into these tensors (``s``'s own steps in place)."""
+        the new state into these tensors (``s``'s own steps in place).
+
+        On the card (:meth:`on_card`) the window is ``n_max`` launches of
+        the chunk kernel and one of the check kernel, in place: a block
+        whose instance is inactive, or has run its ``n_sub`` sub-blocks,
+        returns at once.  Elsewhere the plain version runs
+        (:meth:`plain_window`)."""
+        if not self.on_card(s.x):
+            return self.plain_window(op, t, s, eta, dr, dc, limit, n_max,
+                                     out)
+        if out is None:
+            out = s.map(torch.clone)
+        elif out is not s:
+            for f in _State._fields:
+                getattr(out, f).copy_(getattr(s, f))
+        counted = not torch.cuda.is_current_stream_capturing()
+        for j in range(n_max):
+            fused_chunk.window_chunk(op, t, out, eta, limit, self.n_eq,
+                                     self.sub, j, self.adaptive,
+                                     self.variant, self.alpha)
+            # a launch under capture runs at the graph's replays, which
+            # count it (_WindowRunner.step)
+            self.launches += counted
+        fused_chunk.check_window(op, t, out, eta, dr, dc, limit, self.n_eq,
+                                 self.check_ints, self.check_floats)
+        return out
+
+    def plain_window(self, op, t: _Context, s: _State, eta, dr, dc, limit,
+                     n_max: int, out: Optional[_State] = None) -> _State:
+        """:meth:`window` in PyTorch: every instance advances (through the
+        chunk kernel where ``use_kernel`` is set), and a select keeps the
+        inactive ones' state; the reference the check kernel is held
+        against."""
         active = ~s.converged & ~s.infeasible & (s.total < limit)
         return _where(active, self._body(op, t, s, eta, dr, dc,
                                          self._n_sub(s), n_max, False), s,
                       out)
 
-    def status(self, s: _State, limit) -> torch.Tensor:
+    def status(self, s: _State, limit,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """What the host reads after each window, as one int32 device
-        tensor: the instances active under ``limit``, the largest
-        sub-block count among them, the largest total, the unfinished
-        (neither converged nor infeasible) count, the largest cadence,
-        then the (B,) unfinished mask (:class:`_StatusRead`)."""
+        tensor (into ``out`` when given): the instances active under
+        ``limit``, the largest sub-block count among them, the largest
+        total, the unfinished (neither converged nor infeasible) count,
+        the largest cadence, then the (B,) unfinished mask
+        (:class:`_StatusRead`).  On the card one kernel computes it."""
+        if self.on_card(s.x):
+            return fused_chunk.window_status(
+                s.converged, s.infeasible, s.total, s.cadence, limit,
+                self.sub, self.adaptive, out)
+        st = self.plain_status(s, limit)
+        return st if out is None else out.copy_(st)
+
+    def plain_status(self, s: _State, limit) -> torch.Tensor:
+        """:meth:`status` in PyTorch."""
         unfinished = ~(s.converged | s.infeasible)
         active = unfinished & (s.total < limit)
         head = torch.stack([
@@ -1021,14 +1091,32 @@ class _Solver:
         return torch.cat([head, unfinished.to(torch.int32)])
 
     def run_chunk(self, op, c, q, l, u, dr, dc, eta, state: _State,
-                  limit: int) -> _State:
+                  limit: int, stats: Optional["SolveStats"] = None
+                  ) -> _State:
         """The eager window loop: advance every instance until it
         converges, certifies infeasibility, or reaches ``limit`` total
         iterations; each check window's update lands only on the
-        instances still active.  Functional (a new state each window,
-        the uniform sub-block form where every active instance runs
-        ``n_max``); the row-sharded solve runs it, and the tests hold the
-        graph runner against it."""
+        instances still active.  Functional (``state`` is left as it
+        was); in PyTorch a new state each window, the uniform sub-block
+        form where every active instance runs ``n_max``; on the card
+        (:meth:`on_card`) the kernel window on a copy of ``state``, as
+        the graph runner replays it.  The row-sharded solve runs it, and
+        the tests hold the graph runner against it.  ``stats`` counts
+        ``instance_windows`` and ``active_instance_windows``."""
+        B = c.shape[0]
+        if self.on_card(state.x):
+            c, q, l, u = (a.contiguous() for a in (c, q, l, u))
+            t = self._context(c, q, l, u, dr, dc)
+            s = state.map(torch.clone)
+            lim = torch.tensor(limit, dtype=torch.int32, device=c.device)
+            while True:
+                n_act, n_max = self.status(s, lim)[:2].tolist()
+                if n_act == 0:
+                    return s
+                if stats is not None:
+                    stats.instance_windows += B
+                    stats.active_instance_windows += n_act
+                self.window(op, t, s, eta, dr, dc, lim, n_max, out=s)
         t = self._context(c, q, l, u, dr, dc)
         s = state
         while True:
@@ -1041,6 +1129,9 @@ class _Solver:
                  ns_min.min()]).tolist())
             if n_act == 0:
                 return s
+            if stats is not None:
+                stats.instance_windows += B
+                stats.active_instance_windows += n_act
             s = _where(active, self._body(op, t, s, eta, dr, dc, n_sub,
                                           n_max, n_max == n_min), s)
 
@@ -1187,7 +1278,8 @@ class _Graph(NamedTuple):
 # the same fields
 DRIVER_FIELDS = ("chunks", "check_windows", "graph_replays",
                   "graph_captures", "capture_s", "readbacks", "sync_wait_s",
-                  "warmup_launches")
+                  "warmup_launches", "instance_windows",
+                  "active_instance_windows")
 DRIVER_COUNTS = {k: 0 for k in DRIVER_FIELDS}
 _driver_lock = threading.Lock()
 
@@ -1270,7 +1362,7 @@ class _WindowRunner:
         sv = self.sv
         sv.window(self.op, self.ctx, self.state, self.eta, self.dr, self.dc,
                   self.limit, n_max, out=self.state)
-        self.status.copy_(sv.status(self.state, self.limit))
+        sv.status(self.state, self.limit, out=self.status)
 
     def read(self, stats: SolveStats) -> _StatusRead:
         t0 = time.perf_counter()
@@ -1293,7 +1385,8 @@ class _WindowRunner:
         stats.graph_replays += 1
         if g.launches:
             fused_chunk.add_launches(g.launches)
-            self.sv.launches += sum(g.launches.values())
+            self.sv.launches += sum(n for (k, *_), n in g.launches.items()
+                                    if k in fused_chunk.KERNELS)
 
     def _capture(self, n_max: int, stats: SolveStats) -> _Graph:
         """Capture the window of ``n_max`` sub-blocks on the device's
@@ -1648,6 +1741,8 @@ class CompiledLPSolver:
         runner.load(*cur, state, limit)
         st = runner.read(stats)
         while st.n_act:
+            stats.instance_windows += cur[0].shape[0]
+            stats.active_instance_windows += st.n_act
             runner.step(st.n_max, stats)
             st = runner.read(stats)
         stats.chunks += 1

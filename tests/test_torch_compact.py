@@ -309,7 +309,7 @@ def test_halo_covers_every_band_read():
         for d in offs:
             assert -hl <= d and m - 1 + d < n + hr
         assert fused_chunk.smem_bytes(m, n, offs) == 4 * (
-            5 * n + hl + hr + m + len(offs) * m)
+            4 + 5 * n + hl + hr + m + len(offs) * m)
 
 
 def test_shared_budget_at_the_path_shapes():

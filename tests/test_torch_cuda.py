@@ -35,6 +35,8 @@ Battery + PV cases, 32 ICE + CHP + Reliability cases, a year each), the
 ``valuation`` and ``dispatch`` spans' self time — what their children on
 their own thread leave uncovered — is under 5% of their duration.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -400,8 +402,8 @@ def test_wrapper_rejects_wrong_dtype(cuda):
     g = torch.zeros(2, lp.m, device=cuda)
     s = torch.ones(2, device=cuda)
     with pytest.raises(TypeError):
-        fused_chunk.dense_chunk(f, g, f, f, s, s, x, g, f, g, solver.op,
-                                lp.n_eq, 4)
+        fused_chunk.batched_chunk(solver.op, f, g, f, f, s, solver.eta, x, g,
+                                  f, g, lp.n_eq, 4)
 
 
 def _small_case(hours=72):
@@ -659,12 +661,13 @@ def solve_inputs(solver, C):
     return c, q, l, u
 
 
-def functional_solve(solver, C):
+def functional_solve(solver, C, stats=None):
     """The chunk driver as it ran before the graph runner: the eager
     functional window loop (``_Solver.run_chunk``, the uniform sub-block
     form where it applies), one state read a chunk, and compaction to the
     bucket grid, on the solver's device.  Returns the result and the
-    bucket occupancy."""
+    bucket occupancy; ``stats`` takes the loop's instance-window
+    counts."""
     sv, op, dev = solver._solver, solver.op, solver.device
     c, q, l, u = solve_inputs(solver, C)
     const = (solver.dr, solver.dc)
@@ -674,7 +677,7 @@ def functional_solve(solver, C):
     while True:
         limit = min(total + opts.compact_chunk_iters, opts.max_iters)
         cur_state = sv.run_chunk(op, *cur, *const, solver.eta, cur_state,
-                                 limit)
+                                 limit, stats)
         act = (~(cur_state.converged | cur_state.infeasible)).cpu().numpy()
         total, n_active = int(cur_state.total.max()), int(act.sum())
         if n_active == 0 or total >= opts.max_iters:
@@ -813,6 +816,390 @@ def test_dropped_solver_frees_its_graphs(cuda, monkeypatch):
     assert held > alloc0
     assert torch.cuda.memory_allocated(cuda) == alloc0
     assert torch.cuda.memory_reserved(cuda) <= reserved0
+
+
+# The check window in the kernels, at the shapes it runs: the sweep's
+# monthly window (745 x 2976, a register configuration), a banded LP over
+# 2,304 rows that only the shared-state configuration takes (2500 x 7200,
+# the daily-cycle rows as its wide pair) and a dense op (49 x 144)
+WINDOW_LPS = {
+    "monthly": lambda: benchlib.build_window_lps(
+        benchlib.synthetic_case())[1][744][0],
+    "shared": lambda: banded_lp(port_lp.LPBuilder, T=2400, daily_rows=True),
+    "dense": lambda: mixed_lp(port_lp.LPBuilder),
+}
+_window_lps: dict = {}
+# The check kernel sums each reduction in float64, the plain window in
+# float32 in other orders: the scalars they give (mu, the primal weight)
+# differ by rounding, within CHECK_RTOL of the scale of the terms that
+# produced them; the vectors are selects of the same float32 values
+# (x_sum / inner divides alike), within VECTOR_RTOL.  A decision is held
+# equal where its margin to the threshold, over that scale, exceeds
+# DECISION_TOL.
+CHECK_RTOL = 1e-4
+VECTOR_RTOL = 1e-6
+DECISION_TOL = 1e-4
+_FLAG_FIELDS = ("inner", "total", "converged", "iters_at_conv",
+                "infeas_streak", "infeasible", "restarts", "cadence")
+_VECTOR_FIELDS = ("x", "y", "x_sum", "y_sum", "x_restart", "y_restart",
+                  "done_x", "done_y")
+
+
+def window_lp(kind):
+    if kind not in _window_lps:
+        _window_lps[kind] = WINDOW_LPS[kind]()
+    return _window_lps[kind]
+
+
+def window_solver(kind, device, variant="reflected", scheme="auto",
+                  adaptive=True, **kw):
+    """A solver of the ``kind`` LP: adaptive cadence (sub-blocks of 32
+    iterations, windows of 32-128) or fixed (windows of 32)."""
+    opts = pdhg.PDHGOptions(variant=variant, restart_scheme=scheme,
+                            check_every=128 if adaptive else 32,
+                            check_every_min=32, **kw)
+    return pdhg.CompiledLPSolver(window_lp(kind), opts, device=device)
+
+
+def mixed_window_state(solver, B=48, seed=0):
+    """A batch of every kind of instance a check window meets, from a
+    seeded mid-solve state (per-instance prices, 96 iterations): an
+    eighth each converged, certified infeasible and at the chunk's limit,
+    the rest active, with random inner counts (artificial restarts),
+    restart scores (restarts or none), infeasibility streaks and, under
+    the adaptive cadence, cadences of 1, 2 and 4 sub-blocks (held
+    instances).  Returns (state, (c, q, l, u), limit as a device int32
+    scalar)."""
+    sv, lp, dev = solver._solver, solver.lp, solver.device
+    rng = np.random.default_rng(seed)
+    c, q, l, u = (a.contiguous() for a in
+                  solve_inputs(solver, price_batch(lp, B, seed)))
+    args = (solver.op, c, q, l, u, solver.dr, solver.dc)
+    s = sv.run_chunk(*args, solver.eta, sv.init_state(*args), 96)
+    h = {f: getattr(s, f).cpu().numpy().copy() for f in pdhg._State._fields}
+    limit = int(h["total"].max()) + 4096
+    kind = np.arange(B) % 8
+    h["converged"] |= kind == 1
+    h["iters_at_conv"] = np.where(kind == 1, h["total"], h["iters_at_conv"])
+    h["infeasible"] |= kind == 2
+    h["total"] = np.where(kind == 3, limit, h["total"]).astype(np.int32)
+    h["inner"] = rng.integers(0, h["total"] + 1).astype(np.int32)
+    h["mu_restart"] = (h["mu_restart"]
+                       * rng.lognormal(0.0, 1.5, B)).astype(np.float32)
+    h["mu_prev"] = (h["mu_prev"] * rng.lognormal(0.0, 0.5, B)
+                    ).astype(np.float32)
+    h["infeas_streak"] = rng.integers(0, 4, B).astype(np.int32)
+    if sv.adaptive:
+        h["cadence"] = (sv.sub * rng.choice([1, 2, 4], B)).astype(np.int32)
+    state = pdhg._State(**{f: torch.as_tensor(v, device=dev)
+                           for f, v in h.items()})
+    return state, (c, q, l, u), torch.tensor(limit, dtype=torch.int32,
+                                             device=dev)
+
+
+def _rel_margin(a, b, scale):
+    return (a - b).abs() / scale.clamp_min(1e-30)
+
+
+def decision_margins(sv, op, t, s, adv, eta, dr, dc):
+    """(B,) the smallest margin, over the scale of its terms, of every
+    decision the check takes from the window's start ``s`` and the
+    advanced iterates ``adv`` (x, y, x_sum, y_sum): the average against
+    the current iterate, the three convergence tests, the Farkas
+    certificate's three, the restart tests and the primal weight's
+    movement tests; computed with the plain window's own pieces."""
+    o = sv.opts
+    x, y, xs, ys = adv
+    n_sub = sv._n_sub(s)
+    inner = s.inner + n_sub * sv.sub
+    fin = inner.to(x.dtype)[:, None]
+    xa, ya = xs / fin, ys / fin
+    mu_c, cur = sv._mu(op, t, x, y, dr, dc)
+    mu_a, avg = sv._mu(op, t, xa, ya, dr, dc)
+
+    def scale(terms):
+        pr, du, gp, po, do = terms
+        return pr + du + (po.abs() + do.abs()) / (1.0 + po.abs() + do.abs())
+    sc_mu = torch.maximum(scale(cur), scale(avg))
+    out = [_rel_margin(mu_a, mu_c, sc_mu)]
+    use = mu_a < mu_c
+    pr, du, gp, po, do = (torch.where(use, a, b) for a, b in zip(avg, cur))
+    rp = o.eps_abs + o.eps_rel * t.q_norm
+    rd = o.eps_abs + o.eps_rel * t.c_norm
+    rg = o.eps_abs + o.eps_rel * (po.abs() + do.abs())
+    out += [_rel_margin(pr, rp, pr + rp), _rel_margin(du, rd, du + rd),
+            _rel_margin(gp, rg, po.abs() + do.abs() + o.eps_abs)]
+    fk_gap, fk_viol, ynorm = pdhg._farkas_gap(op, y, t.q_us, t.l_us, t.u_us,
+                                              dr, dc)
+    ref = o.eps_infeas * (1.0 + t.q_norm)
+    den = ynorm.clamp_min(1e-12)[:, None]
+    ray = pdhg.op_rmatvec(op, y) / dc / den
+    lf, uf = torch.isfinite(t.l_us), torch.isfinite(t.u_us)
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    sc_gap = ((t.q_us * dr * y / den).abs().sum(-1)
+              + torch.where(uf, ray.clamp_min(0) * t.u_us, zero).abs().sum(-1)
+              + torch.where(lf, ray.clamp_max(0) * t.l_us, zero).abs().sum(-1))
+    sc_viol = torch.where(lf & uf, zero, ray.abs()).sum(-1)
+    out += [_rel_margin(fk_gap, ref, sc_gap + ref),
+            _rel_margin(fk_viol, ref, sc_viol + ref),
+            _rel_margin(ynorm, torch.ones_like(ynorm), ynorm + 1.0)]
+    if sv.fp_scheme:
+        xT, yT = sv.pdhg_step(op, t, s.omega, eta, x, y)
+        track = torch.sqrt(((xT - x) ** 2).sum(-1) + ((yT - y) ** 2).sum(-1))
+        sc_tr = track + 1e-3 * (_norm(x) + _norm(y))
+        dx, dy = _norm(x - s.x_restart), _norm(y - s.y_restart)
+    else:
+        track, sc_tr = torch.minimum(mu_a, mu_c), sc_mu
+        dx = _norm(torch.where(use[:, None], xa, x) - s.x_restart)
+        dy = _norm(torch.where(use[:, None], ya, y) - s.y_restart)
+    for thr in (o.fp_beta_sufficient if sv.fp_scheme else o.beta_sufficient,
+                o.beta_necessary):
+        out.append(_rel_margin(track, thr * s.mu_restart, sc_tr))
+    out.append(_rel_margin(track, s.mu_prev, sc_tr))
+    tiny = torch.full_like(dx, 1e-10)
+    out += [_rel_margin(dx, tiny, dx + tiny), _rel_margin(dy, tiny, dy + tiny)]
+    return torch.stack(out).min(0).values, sc_mu, sc_tr
+
+
+def _norm(v):
+    return torch.linalg.vector_norm(v, dim=-1)
+
+
+def _field(s, f):
+    return getattr(s, f).cpu().numpy()
+
+
+def check_window_comparison(device, kind, variant, scheme, adaptive,
+                            B=48, seed=0, converging=False):
+    """``window_comparison`` on a ``window_solver`` of ``kind``."""
+    return window_comparison(window_solver(kind, device, variant, scheme,
+                                           adaptive), B, seed, converging)
+
+
+def window_comparison(solver, B=48, seed=0, converging=False):
+    """One check window of ``solver`` (on the card) from
+    ``mixed_window_state`` through the kernels (``_Solver.window``) and
+    through the plain window (kernel chunks, PyTorch check, select):
+    returns a summary, asserting what
+    ``test_check_kernel_matches_plain_window`` states.  ``converging``:
+    the window checks at ``eps_abs`` 0 and an ``eps_rel`` at the median,
+    over the active instances, of the worst of their three relative KKT
+    errors, so that about half of them converge in it.  ``chip_smoke.py``
+    runs it at the main path's shapes and batches."""
+    s, inputs, lim = mixed_window_state(solver, B, seed)
+    sv = solver._solver
+    t = sv._context(*inputs, solver.dr, solver.dc)
+    n_max = int(sv.plain_status(s, lim)[1])
+    if converging:
+        x, y, xs, ys = sv.advance(solver.op, t, s, solver.eta, sv._n_sub(s),
+                                  n_max, False)
+        _, (pr, du, gp, po, do) = sv._mu(solver.op, t, x, y, solver.dr,
+                                         solver.dc)
+        worst = torch.stack([pr / t.q_norm, du / t.c_norm,
+                             gp / (po.abs() + do.abs())]).max(0).values
+        active = ~s.converged & ~s.infeasible & (s.total < lim)
+        solver = solver.with_options(dataclasses.replace(
+            solver.opts, eps_abs=0.0,
+            eps_rel=float(worst[active].median())))
+    sv, op = solver._solver, solver.op
+    dr, dc, eta = solver.dr, solver.dc, solver.eta
+    assert sv.on_card(s.x)
+    adv = sv.advance(op, t, s, eta, sv._n_sub(s), n_max, False)
+    ref = sv.plain_window(op, t, s, eta, dr, dc, lim, n_max)
+    new = sv.window(op, t, s, eta, dr, dc, lim, n_max)
+    # the status kernel computes the plain status of the state it is given
+    assert torch.equal(sv.status(new, lim), sv.plain_status(new, lim))
+    assert torch.equal(sv.status(s, lim), sv.plain_status(s, lim))
+    active = (~s.converged & ~s.infeasible & (s.total < lim)).cpu().numpy()
+    held = active & (sv._n_sub(s).cpu().numpy() < n_max)
+    assert active.sum() and (~active).sum()
+    assert held.sum() if sv.adaptive else n_max == 1
+    # inactive instances: every field as it was, in both
+    for f in pdhg._State._fields:
+        a, r, s0 = _field(new, f), _field(ref, f), _field(s, f)
+        assert np.array_equal(a[~active], s0[~active]), f
+        assert np.array_equal(r[~active], s0[~active]), f
+    margin, sc_mu, sc_tr = (v.cpu().numpy() for v in
+                            decision_margins(sv, op, t, s, adv, eta, dr, dc))
+    sure = active & (margin > DECISION_TOL)
+    assert sure.sum() >= 0.75 * active.sum(), (sure.sum(), active.sum())
+    for f in _FLAG_FIELDS:
+        a, r = _field(new, f), _field(ref, f)
+        assert np.array_equal(a[sure], r[sure]), (f, a[sure], r[sure])
+    for f in _VECTOR_FIELDS:
+        assert_close_rows(_field(new, f)[sure], _field(ref, f)[sure], f,
+                          rtol=VECTOR_RTOL, atol=0.0)
+    a, r = _field(new, "omega")[sure], _field(ref, "omega")[sure]
+    assert np.all(np.abs(a - r) <= CHECK_RTOL * np.abs(r)), ("omega", a, r)
+    sc = np.maximum(sc_mu, sc_tr)[sure]
+    for f in ("mu_restart", "mu_prev"):
+        a, r = _field(new, f)[sure], _field(ref, f)[sure]
+        finite = np.isfinite(r)
+        assert np.array_equal(finite, np.isfinite(a)), f
+        assert np.all(np.abs(a - r)[finite] <= CHECK_RTOL * sc[finite]), \
+            (f, a, r)
+    restarted = (_field(ref, "restarts") > _field(s, "restarts"))[sure]
+    converged = (_field(ref, "converged") & ~_field(s, "converged"))[sure]
+    return dict(active=int(active.sum()), held=int(held.sum()),
+                sure=int(sure.sum()), restarted=int(restarted.sum()),
+                converged=int(converged.sum()), n_max=n_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(WINDOW_LPS))
+@pytest.mark.parametrize("variant", sorted(ALPHA))
+@pytest.mark.parametrize("scheme", ["kkt", "fixed_point"])
+@pytest.mark.parametrize("adaptive", [True, False],
+                         ids=["adaptive", "fixed"])
+def test_check_kernel_matches_plain_window(cuda, kind, variant, scheme,
+                                           adaptive):
+    """One check window of a batch that mixes active, converged,
+    infeasible, over-limit and held instances, through the chunk kernels
+    with their activity predicate and the check kernel, against the plain
+    window (the chunk kernels without the predicate, PyTorch's check and
+    select) and the plain status: inactive instances bit-equal to their
+    start in both; where every decision's margin exceeds DECISION_TOL
+    (at least three quarters of the active instances), every flag and
+    count equal, the vectors within VECTOR_RTOL and the scalars within
+    CHECK_RTOL (float64 against float32 reduction order)."""
+    out = check_window_comparison(cuda, kind, variant, scheme, adaptive)
+    print(kind, variant, scheme, adaptive, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(WINDOW_LPS))
+@pytest.mark.parametrize("scheme", ["kkt", "fixed_point"])
+def test_check_kernel_converges_as_plain_window(cuda, kind, scheme):
+    """As ``test_check_kernel_matches_plain_window``, the window checking
+    at a tolerance half of the active instances meet: they converge in
+    it, and their frozen answers (``done_x``, ``done_y``) and
+    ``iters_at_conv`` agree."""
+    out = check_window_comparison(cuda, kind, "reflected", scheme, True,
+                                  converging=True)
+    print(kind, scheme, out)
+    assert out["converged"] > 0
+
+
+def predicate_comparison(device, kind, variant, B=48, seed=1):
+    """A window's sub-blocks through the chunk kernels with the activity
+    predicate, in place, against the plain window's advance (the kernels
+    on every instance, then selects): returns (active, held) counts."""
+    solver = window_solver(kind, device, variant)
+    sv, op = solver._solver, solver.op
+    s, inputs, lim = mixed_window_state(solver, B, seed)
+    t = sv._context(*inputs, solver.dr, solver.dc)
+    n_max = int(sv.plain_status(s, lim)[1])
+    n_sub = sv._n_sub(s)
+    ref = sv.advance(op, t, s, solver.eta, n_sub, n_max, False)
+    new = s.map(torch.clone)
+    for j in range(n_max):
+        fused_chunk.window_chunk(op, t, new, solver.eta, lim, sv.n_eq,
+                                 sv.sub, j, sv.adaptive, sv.variant,
+                                 sv.alpha)
+    active = (~s.converged & ~s.infeasible & (s.total < lim)).cpu().numpy()
+    held = active & (n_sub.cpu().numpy() < n_max)
+    assert active.sum() and (~active).sum() and held.sum()
+    for f, r in zip(("x", "y", "x_sum", "y_sum"), ref):
+        a, r, s0 = _field(new, f), r.cpu().numpy(), _field(s, f)
+        assert np.array_equal(a[active], r[active]), f
+        assert np.array_equal(a[~active], s0[~active]), f
+    for f in pdhg._State._fields:
+        if f not in ("x", "y", "x_sum", "y_sum"):
+            assert torch.equal(getattr(new, f), getattr(s, f)), f
+    return int(active.sum()), int(held.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(WINDOW_LPS))
+@pytest.mark.parametrize("variant", sorted(ALPHA))
+def test_chunk_predicate_equals_advance(cuda, kind, variant):
+    """The chunk kernels with the activity predicate, in place, give the
+    plain window's advance bit for bit: active instances its rows (held
+    ones after their own sub-blocks), finished and over-limit ones their
+    start; nothing but x, y and the sums is written."""
+    print(kind, variant, predicate_comparison(cuda, kind, variant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["monthly", "dense"])
+def test_kernel_window_solve_matches_plain_window(cuda, kind, monkeypatch):
+    """A whole solve (64 price scenarios, graphs and compaction) with the
+    check window in the kernels against the same solve with the plain
+    window: the same statuses, objectives within the certificate's
+    objective tolerance, iteration counts within one window for at least
+    95% of the instances; instance-windows skipped by the kernels."""
+    from dervet_tpu_torch.ops import certify
+    kw = dict(cpu_rescue_after=None)
+    solver = pdhg.CompiledLPSolver(window_lp(kind), pdhg.PDHGOptions(**kw),
+                                   device=cuda)
+    plain = pdhg.CompiledLPSolver(window_lp(kind), pdhg.PDHGOptions(**kw),
+                                  device=cuda)
+    monkeypatch.setattr(plain._solver, "on_card", lambda x: False)
+    C = price_batch(window_lp(kind), 64, seed=6)
+    st, pst = pdhg.SolveStats(), pdhg.SolveStats()
+    res = solver.solve(c=C, stats=st)
+    ref = plain.solve(c=C, stats=pst)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(res.status.cpu().numpy(),
+                                  ref.status.cpu().numpy())
+    a, b = res.obj.cpu().numpy(), ref.obj.cpu().numpy()
+    eps = certify.CertPolicy().eps_obj
+    assert np.all(np.abs(a - b) <= eps * np.maximum(np.abs(b), 1.0))
+    gap = np.abs(res.iters.cpu().numpy() - ref.iters.cpu().numpy())
+    share = float(np.mean(gap <= pdhg.PDHGOptions().check_every))
+    print(kind, "iterations within one window:", share, "max gap",
+          int(gap.max()), "active share",
+          st.as_dict()["active_instance_share"],
+          pst.as_dict()["active_instance_share"])
+    assert share >= 0.95
+    assert st.active_instance_windows < st.instance_windows
+    assert st.kernel_launches > 0 and pst.kernel_launches > 0
+
+
+_WINDOW_KERNEL_NAMES = ("chunk_kernel", "check_window_kernel",
+                        "window_status_kernel")
+
+
+def _device_kernels(fn):
+    """The names of the kernels the device ran during ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["monthly", "dense"])
+def test_window_launches_only_the_kernels(cuda, kind):
+    """A check window of a kernel-supported solve runs nothing on the
+    device but the hand-written kernels: ``n_max`` chunk launches, the
+    check kernel and the status kernel, eagerly and as a graph replay
+    (the device's own record, from the profiler), and the graph's launch
+    tally holds those three kernels only."""
+    solver = window_solver(kind, cuda)
+    C = price_batch(window_lp(kind), 32, seed=2)
+    solver.solve(c=C)
+    runner = solver._runners[32]
+    sv = solver._solver
+    inputs = tuple(a.contiguous() for a in solve_inputs(solver, C))
+    runner.load(*inputs, sv.init_state(solver.op, *inputs, solver.dr,
+                                       solver.dc), 4096)
+    st = runner.read(pdhg.SolveStats())
+    assert st.n_max == 1 and 1 in runner.graphs
+    names = _device_kernels(lambda: runner.step(1, pdhg.SolveStats()))
+    print(kind, "replay:", names)
+    assert len(names) == 3, names
+    assert all(any(k in nm for k in _WINDOW_KERNEL_NAMES) for nm in names)
+    assert {k for k, *_ in runner.graphs[1].launches} == {
+        fused_chunk.kernel_for(solver.op), fused_chunk.KERNEL_CHECK,
+        fused_chunk.KERNEL_STATUS}
+    names = _device_kernels(lambda: runner._window(2))
+    print(kind, "eager:", names)
+    assert len(names) == 2 + 2, names
+    assert all(any(k in nm for k in _WINDOW_KERNEL_NAMES) for nm in names)
 
 
 def _self_time(spans, span) -> float:

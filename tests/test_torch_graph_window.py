@@ -15,7 +15,9 @@ before (``_Solver.run_chunk``) and against the JAX package:
   to the functional driver with the uniform form, for each step variant
   (a context, input or state left stale across the compaction fails it);
 * (c) the solve reads the status once as each chunk starts and once
-  after each window: ``readbacks`` equals windows plus chunks;
+  after each window: ``readbacks`` equals windows plus chunks; its
+  ``active_instance_windows`` is the sum of the active counts the
+  functional loop steps, of ``instance_windows`` instance-windows;
 * (d) on the JAX package's first 31-day window x 16 price scenarios, where
   both packages' solvers take the same iteration counts, the port's chunk
   count, compaction events and bucket occupancy equal the JAX package's
@@ -134,8 +136,30 @@ def test_readbacks_are_windows_plus_chunks(kind, monkeypatch):
     # the CPU runs the window eagerly: no graph, no launch
     assert stats.graph_captures == stats.graph_replays == 0
     assert stats.kernel_launches == stats.warmup_launches == 0
-    for k in ("chunks", "check_windows", "readbacks"):
+    for k in ("chunks", "check_windows", "readbacks", "instance_windows",
+              "active_instance_windows"):
         assert pdhg.DRIVER_COUNTS[k] - before[k] == getattr(stats, k), k
+
+
+@pytest.mark.parametrize("kind", ["banded_wide", "dense", "ell_residual"])
+def test_active_instance_windows_are_the_steps(kind, monkeypatch):
+    """A solve's ``active_instance_windows`` equals the sum of the
+    active counts the eager functional loop (``_Solver.run_chunk``) steps
+    over the same chunks and compactions, and ``instance_windows`` its
+    batch widths; on the straggler batch finished instances sit in the
+    windows, and ``as_dict`` reports the share."""
+    solver = make_solver(kind, monkeypatch, **STRAGGLER_OPTS)
+    C = straggler_prices(solver.lp)
+    ref = pdhg.SolveStats()
+    functional_solve(solver, C, stats=ref)
+    stats = pdhg.SolveStats()
+    solver.solve(c=C, stats=stats)
+    assert stats.active_instance_windows == ref.active_instance_windows > 0
+    assert stats.instance_windows == ref.instance_windows \
+        > stats.active_instance_windows
+    assert stats.as_dict()["active_instance_share"] == round(
+        stats.active_instance_windows / stats.instance_windows, 4)
+    assert pdhg.SolveStats().as_dict()["active_instance_share"] is None
 
 
 def test_chunks_and_compaction_match_jax():

@@ -150,6 +150,17 @@ def test_escalation_rungs_are_spans(rungs, landed):
     assert recovered[want[-1]] == 2
 
 
+def test_groups_carry_their_instance_windows(fanout):
+    """Each ``dispatch_group`` span carries the solve's instance-window
+    counts beside ``retried``: the active ones of all of them."""
+    groups = [s for s in fanout.trace if s["name"] == "dispatch_group"]
+    assert groups
+    for g in groups:
+        a = g["attrs"]
+        assert "retried" in a
+        assert 0 < a["active_instance_windows"] <= a["instance_windows"]
+
+
 def test_kill_switch_keeps_phase_seconds(fanout):
     res = _solve(months=2, telemetry="0")
     assert res.trace == []
