@@ -1587,6 +1587,9 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
         kern, kern_why, kern_detail = kernel_selection(solver)
         entry = {**(ledger_meta or {}),
                  "backend": backend, "m": lp0.m, "n": lp0.n,
+                 # K's non-zeros: the work a matrix product needs,
+                 # whichever operator the kernel holds K in
+                 "nnz": int(np.count_nonzero(lp0.K.data)),
                  "batch": len(lps),
                  # solver-core observables (ROADMAP item 1): the step
                  # variant this group's jits BAKED IN at build time (a
@@ -1625,6 +1628,11 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                  "iters_p50": int(np.percentile(it, 50)),
                  "iters_p99": int(np.percentile(it, 99)),
                  "iters_max": int(it.max()),
+                 "iters_sum": int(it.sum()),
+                 # members this rung's solve left at max_iters
+                 # unconverged, the accepted near-misses included
+                 "at_limit": sum(1 for i in dev_idx if statuses[i] in (
+                     STATUS_ITER_LIMIT, STATUS_INACCURATE)),
                  "_iters": it}
         # seeded-vs-cold accounting: which members rode a warm start,
         # what it cost them in iterations, and the saving against the
@@ -2617,7 +2625,8 @@ def summarize_solve_ledger(entries, dispatch_solve_s: float,
               + tuple(k for k in DRIVER_FIELDS if k.endswith("_s"))}
     counts = {k: 0 for k in ("h2d_bytes", "result_bytes", "dispatches",
                              "compile_events", "h2d_transfers",
-                             "cpu_rescued", "compact_events", "windows")
+                             "cpu_rescued", "compact_events", "windows",
+                             "iters_sum", "at_limit")
               + tuple(k for k in DRIVER_FIELDS if not k.endswith("_s"))}
     iters_all = []
     warm_seeded_it: list = []

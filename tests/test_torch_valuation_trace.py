@@ -18,10 +18,14 @@ versions), on the small synthetic fan-outs of the pipeline tests:
   leaves no trace in the collector;
 * a span and a ``torch.profiler`` range around the same block agree
   within 1 ms at start and at end: span records sit on the profiler's
-  clock.
+  clock;
+* each ``dispatch_group`` carries its LP (``m``, ``n``, ``nnz``), its
+  instances' iterations (``iters_sum``) and those left at ``max_iters``
+  (``at_limit``), and the ledger's totals sum the groups.
 """
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -205,3 +209,55 @@ def test_spans_sit_on_the_profilers_clock():
     assert start == pytest.approx(span["t_start"], abs=1e-3)
     assert start + dur == pytest.approx(
         span["t_start"] + span["duration_s"], abs=1e-3)
+
+
+@pytest.fixture(scope="module")
+def limited():
+    """A fan-out whose solves stop at 64 iterations, far short of
+    convergence: every window climbs the ladder."""
+    from dervet_tpu_torch.ops.pdhg import PDHGOptions
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(ttrace.ENV, "1")
+        return DERVET.from_cases(benchlib.synthetic_sensitivity_cases(
+            2, months=1)).solve(backend="torch", device="cpu",
+                                solver_opts=PDHGOptions(max_iters=64))
+
+
+def _group_attrs(res):
+    return [s["attrs"] for s in res.trace if s["name"] == "dispatch_group"]
+
+
+def test_groups_carry_their_lp_and_iterations(fanout):
+    """Each ``dispatch_group`` span carries its window LP as the kernel
+    receives it (``m``, ``n``, K's non-zeros), the iterations of its
+    instances summed, and how many stopped at the limit: none here."""
+    _, by_len = benchlib.build_window_lps(
+        benchlib.synthetic_sensitivity_cases(1, months=2)[0])
+    groups = _group_attrs(fanout)
+    assert sorted(a["T"] for a in groups) == sorted(by_len)
+    for a in groups:
+        lp = by_len[a["T"]][0]
+        assert (a["m"], a["n"]) == (lp.m, lp.n)
+        assert a["nnz"] == np.count_nonzero(lp.K.data) > 0
+        assert a["windows"] <= a["iters_sum"] <= a["windows"] * a["iters_max"]
+        assert a["at_limit"] == 0
+
+
+def test_at_limit_counts_every_instance_below_convergence(limited):
+    groups = _group_attrs(limited)
+    assert groups
+    for a in groups:
+        assert a["rung"] == "initial"
+        assert a["at_limit"] == a["windows"] == 2
+        assert a["iters_sum"] >= 64 * a["windows"]
+    health = limited.run_health["windows"]
+    assert health["retried"] + health["cpu_fallback"] == 2 * len(groups)
+
+
+@pytest.mark.parametrize("key", ["iters_sum", "at_limit"])
+def test_ledger_totals_sum_the_groups(key, limited):
+    led = limited.solve_ledger
+    rungs = {g["rung"] for g in led["groups"]}
+    assert {"initial", "retry"} <= rungs
+    device = [g for g in led["groups"] if g.get("backend") != "cpu"]
+    assert led["totals"][key] == sum(g[key] for g in device) > 0
