@@ -295,3 +295,7 @@ class DERVET:
                 from .ops.pdhg import SOLVER_VERSION
                 results.solve_ledger.setdefault("solver_version",
                                                 str(SOLVER_VERSION))
+                # the dispatch pipeline's in-flight groups and streams
+                from .scenario.scenario import PIPELINE_KEYS
+                report["pipeline"] = {k: results.solve_ledger.get(k)
+                                      for k in PIPELINE_KEYS}

@@ -128,16 +128,44 @@ def estimate_group_cost(key, items, cache=None) -> float:
     return float(n) * float(T) * float(baseline or DEFAULT_ITERS_BASELINE)
 
 
+# The idle worker streams of each device.  A worker takes one for what it
+# solves and hands it back after, so dispatches reuse a few streams, and
+# the blocks the caching allocator keeps for each stream, instead of
+# drawing new ones from PyTorch's pool of 32 every round.
+_idle_streams: Dict = {}
+_idle_lock = threading.Lock()
+
+
+@contextlib.contextmanager
 def worker_stream(device):
-    """The context a worker runs in: a CUDA stream of its own on a CUDA
+    """The context a worker solves in: a CUDA stream of its own on a CUDA
     device (the chunk kernels launch on the thread's current stream, and
     the staged uploads are made on it too, so a worker's uploads, solves
     and readbacks are ordered on its stream and two workers on one card
-    overlap); nothing on any other device."""
+    overlap), no other worker's while it is held; nothing on any other
+    device.  Yields the stream, or None."""
     if getattr(device, "type", None) != "cuda":
-        return contextlib.nullcontext()
+        yield None
+        return
     import torch
-    return torch.cuda.stream(torch.cuda.Stream(device))
+    with _idle_lock:
+        idle = _idle_streams.setdefault(device, [])
+        stream = idle.pop() if idle else torch.cuda.Stream(device)
+    try:
+        with torch.cuda.stream(stream):
+            yield stream
+    finally:
+        with _idle_lock:
+            idle.append(stream)
+
+
+def multiprocessor_count(device) -> Optional[int]:
+    """The streaming multiprocessors of a CUDA ``device`` (132 on an
+    H100 SXM), or None on any other device."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+    return int(torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 class GroupTask:

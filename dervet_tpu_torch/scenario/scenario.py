@@ -18,6 +18,7 @@ each batch over them (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -1228,15 +1229,30 @@ class StagedGroupData:
     already ENQUEUED (pinned host memory, ``non_blocking``): staging group
     i+1 on the dispatch thread while group i's solve is in flight overlaps
     the upload with the running solve.  ``host`` keeps the pinned source
-    buffers alive until the copies have run."""
-    __slots__ = ("arrays", "host", "stack_s", "h2d_s", "h2d_bytes")
+    buffers alive until the copies have run; ``ready`` (CUDA) is recorded
+    on the staging thread's stream after the copies."""
+    __slots__ = ("arrays", "host", "stack_s", "h2d_s", "h2d_bytes", "ready")
 
-    def __init__(self, arrays, host, stack_s, h2d_s, h2d_bytes):
+    def __init__(self, arrays, host, stack_s, h2d_s, h2d_bytes, ready=None):
         self.arrays = arrays
         self.host = host
         self.stack_s = stack_s
         self.h2d_s = h2d_s
         self.h2d_bytes = h2d_bytes
+        self.ready = ready
+
+    def take(self):
+        """The device arrays, for a solve on the calling thread's current
+        stream, which may be another than the one they were staged on: the
+        stream waits for the upload, and the caching allocator keeps their
+        memory from other streams until this one has passed them."""
+        if self.ready is not None:
+            import torch
+            st = torch.cuda.current_stream(self.arrays[0].device)
+            st.wait_event(self.ready)
+            for a in self.arrays:
+                a.record_stream(st)
+        return self.arrays
 
 
 def stage_group_data(items, solver_opts, device,
@@ -1260,9 +1276,13 @@ def stage_group_data(items, solver_opts, device,
     if device.type == "cuda":
         host = [h.pin_memory() for h in host]
     dev = tuple(h.to(device, non_blocking=True) for h in host)
+    ready = None
+    if device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
     t2 = time.perf_counter()
     return StagedGroupData(dev, host, t1 - t0, t2 - t1,
-                           sum(a.nbytes for a in arrs))
+                           sum(a.nbytes for a in arrs), ready)
 
 
 def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
@@ -1427,7 +1447,7 @@ def solve_group(lp0: LP, lps: List[LP], backend: str, solver_opts,
                                x0=sx, y0=sy)
         else:
             if staged is not None:
-                C, Q, L, U = staged.arrays
+                C, Q, L, U = staged.take()
             else:
                 sdt = np.dtype(solver.opts.dtype)
                 t0 = time.perf_counter()
@@ -1928,14 +1948,21 @@ def _guarded_solve(watchdog, rung_desc: str, lps, labels, call):
     ladder keys on to keep re-solving even on the otherwise-deterministic
     cpu backend (a hung call, unlike a solved-to-infeasible one, may well
     succeed on a retry)."""
+    import torch
+
     from ..ops.pdhg import STATUS_ITER_LIMIT
     if watchdog is None:
         return call(), False
     parent = telemetry_trace.current()
+    # a pipeline worker solves on a CUDA stream of its own: so does the
+    # watchdog's thread that solves for it
+    on_stream = (torch.cuda.stream(torch.cuda.current_stream())
+                 if torch.cuda.is_initialized()
+                 else contextlib.nullcontext())
 
     def _call():
         # the watchdog's thread solves inside the caller's phase
-        with telemetry_trace.ambient(parent):
+        with telemetry_trace.ambient(parent), on_stream:
             return call()
 
     result, timed_out = watchdog.call(
@@ -2579,31 +2606,130 @@ def _pipeline_enabled() -> bool:
         not in ("0", "false", "off")
 
 
-def _pipeline_depth(multi_dev: bool = False) -> int:
-    """In-flight group bound for the overlapped dispatch: 0 = serial
+def _pipeline_depth(multi_dev: bool = False) -> tuple[int, bool]:
+    """``(depth, pinned)``: the in-flight group count the overlapped
+    dispatch always admits, and whether it is also the most.  0 = serial
     reference mode (``DERVET_TPU_PIPELINE=0``); an explicit integer > 1 in
     the env var pins the depth; 1 when each batch is split over several
-    devices (see the pipeline in ``_dispatch_phases``); default 2-3.  A
-    worker spends its time blocked in GIL-releasing device waits, so
-    while worker A waits on group A's status readback, worker B enqueues
-    group B's next chunk."""
+    devices (see the pipeline in ``_dispatch_phases``); default 2-3, which
+    :func:`pipeline_admits` raises to what the card's SMs hold.  A worker
+    spends its time blocked in GIL-releasing device waits, so while worker
+    A waits on group A's status readback, worker B enqueues group B's next
+    chunk."""
     import os
     raw = os.environ.get(PIPELINE_ENV, "1").strip().lower()
     if raw in ("0", "false", "off"):
-        return 0
+        return 0, True
     if multi_dev:
-        return 1
+        return 1, True
     try:
         explicit = int(raw)
     except ValueError:
         explicit = 1
     if explicit > 1:
-        return explicit
-    return max(2, min(3, os.cpu_count() or 1))
+        return explicit, True
+    return max(2, min(3, os.cpu_count() or 1)), False
+
+
+# The most structure groups the single-card pipeline holds unscattered at
+# once, unless a pinned depth asks for more: each holds its LPs on the
+# host and its staged upload on the card, so peak LP memory stays a few
+# subgroups and not the whole sweep, and each running one a worker thread
+# with a CUDA stream of its own.  Eight groups of 16 fill 128 of an
+# H100's 132 SMs: only narrower groups, which hold little device work
+# each, stop at this cap before they fill the SMs.
+PIPELINE_MAX_INFLIGHT = 8
+
+# The dispatch's in-flight observables: in the solve ledger, the
+# ``dispatch`` span's attributes and ``Result.run_health["pipeline"]``
+PIPELINE_KEYS = ("pipeline", "max_inflight", "worker_streams",
+                 "inflight_peak", "inflight_mean")
+
+
+def pipeline_admits(inflight, width: int, sm_count: Optional[int],
+                    depth: int) -> bool:
+    """Whether the single-card pipeline starts a group of batch width
+    ``width`` next to the running groups of widths ``inflight``.  The
+    chunk kernels give every instance a block, so a group of width B
+    holds about B of the card's ``sm_count`` SMs: below ``depth`` a group
+    is always admitted (host assembly still overlaps a solve), above it
+    while the widths, the new one's included, fit in the SMs, up to
+    ``PIPELINE_MAX_INFLIGHT``.  ``sm_count`` None (a pinned depth, a
+    batch split over several devices, a CPU device) leaves the depth
+    alone as the bound."""
+    n = len(inflight)
+    if n < depth:
+        return True
+    if not sm_count or n >= PIPELINE_MAX_INFLIGHT:
+        return False
+    return sum(inflight) + width <= sm_count
+
+
+def _pipeline_limits(device, multi_dev: bool = False
+                     ) -> tuple[int, Optional[int], int]:
+    """``(depth, sm_count, max_inflight)`` of the pipeline on ``device``:
+    the depth it always admits, the SMs :func:`pipeline_admits` counts
+    (None where the depth alone bounds), and the most groups it holds
+    unscattered, which is also its pool's worker count."""
+    from ..parallel import elastic as _elastic
+    depth, pinned = _pipeline_depth(multi_dev)
+    sm_count = None if pinned else _elastic.multiprocessor_count(device)
+    if sm_count is None:
+        return depth, None, depth
+    return depth, sm_count, max(depth, PIPELINE_MAX_INFLIGHT)
+
+
+class _InflightClock:
+    """The structure groups in flight over one dispatch's first phase, on
+    the host's clock: each group from the start of its solve to its
+    result (a pipeline worker starts a group the moment it is admitted).
+    ``worker_streams`` counts the CUDA streams of their own the groups
+    ran on (:meth:`add_stream`)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._spans: list = []
+        self._streams: set = set()
+
+    def add_stream(self, stream) -> None:
+        with self._lock:
+            self._streams.add(stream.cuda_stream)
+
+    def track(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, timed as one group in flight."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            t1 = time.perf_counter()
+            with self._lock:
+                self._spans.append((t0, t1))
+
+    def summary(self) -> Dict:
+        """``worker_streams``; ``inflight_peak``, the most groups in
+        flight at once; ``inflight_mean``, their mean over the time from
+        the first group's start to the last one's result."""
+        with self._lock:
+            spans = list(self._spans)
+            streams = len(self._streams)
+        # at equal times a result comes before a start
+        events = sorted([(a, 1) for a, _ in spans]
+                        + [(b, -1) for _, b in spans])
+        n = peak = 0
+        area = 0.0
+        for (t, d), (t_next, _) in zip(events, events[1:] + events[-1:]):
+            n += d
+            peak = max(peak, n)
+            area += n * (t_next - t)
+        wall = events[-1][0] - events[0][0] if events else 0.0
+        return {"worker_streams": streams, "inflight_peak": peak,
+                "inflight_mean": round(area / wall, 3) if wall > 0
+                else float(peak)}
 
 
 def summarize_solve_ledger(entries, dispatch_solve_s: float,
-                           pipeline: bool, max_inflight: int) -> Dict:
+                           pipeline: bool, max_inflight: int,
+                           inflight: Dict) -> Dict:
     """Aggregate per-group solve-ledger entries into the published
     ``solve_ledger`` observable (VERDICT r5 #1: the 60x per-LP gap must
     decompose into named, reproducible numbers).
@@ -2615,7 +2741,9 @@ def summarize_solve_ledger(entries, dispatch_solve_s: float,
     (``staged_stack_s``/``staged_h2d_s``).  ``totals.solve_s`` sums the
     entry walls — cumulative across pipeline threads, the same
     convention as ``dispatch_solve_s`` — so ``accounted_fraction``
-    states how much of the measured solve phase the ledger explains."""
+    states how much of the measured solve phase the ledger explains.
+    ``inflight`` (:meth:`_InflightClock.summary`) sits beside
+    ``max_inflight``: the worker streams and the groups in flight."""
     from ..ops.pdhg import DRIVER_FIELDS
     groups = []
     # the driver's fields: its seconds with the times, the rest counted
@@ -2701,6 +2829,7 @@ def summarize_solve_ledger(entries, dispatch_solve_s: float,
         if dispatch_solve_s > 0 else None,
         "pipeline": bool(pipeline),
         "max_inflight": int(max_inflight),
+        **inflight,
     }
     if iters_all:
         it = np.concatenate(iters_all)
@@ -2990,13 +3119,15 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             _case_solved_fired.add(id(s))
             on_case_solved(s)
 
+    clock = _InflightClock()
+
     def solve_only(key, items, staged=None):
         # on a pool worker: the group phase parents explicitly
-        return items, resolve_group(items, backend, solver_opts,
-                                    key=key, cache=cache, watchdog=watchdog,
-                                    staged=staged, ledger=ledger_entries,
-                                    board=breaker_board, policy=cert_policy,
-                                    parent=dsp)
+        return items, clock.track(
+            resolve_group, items, backend, solver_opts, key=key,
+            cache=cache, watchdog=watchdog, staged=staged,
+            ledger=ledger_entries, board=breaker_board, policy=cert_policy,
+            parent=dsp)
 
     def wait(fut):
         """The dispatch thread blocked on a group's solve."""
@@ -3097,12 +3228,16 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             tags = {"device": dev_idx}
             if task.stolen:
                 tags["stolen"] = True
-            return resolve_group(task.items, backend, solver_opts,
-                                 key=task.key, cache=shard,
-                                 watchdog=watchdog, staged=task.staged,
-                                 ledger=ledger_entries, board=breaker_board,
-                                 policy=cert_policy, device=dev,
-                                 ledger_tags=tags, parent=dsp)
+            if dev.type == "cuda":
+                # the worker's own (elastic.worker_stream)
+                import torch
+                clock.add_stream(torch.cuda.current_stream(dev))
+            return clock.track(
+                resolve_group, task.items, backend, solver_opts,
+                key=task.key, cache=shard, watchdog=watchdog,
+                staged=task.staged, ledger=ledger_entries,
+                board=breaker_board, policy=cert_policy, device=dev,
+                ledger_tags=tags, parent=dsp)
 
         def _elastic_stage(dev, task):
             # on the worker's thread, so on its stream: the upload is
@@ -3163,39 +3298,69 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
             sched.shutdown()
         elastic_stats = sched.stats()
     else:
-        # 2-stage pipeline: host LP assembly of group i overlaps the
-        # device solve of groups < i.  Stacking + the host->device upload
-        # are STAGED on this thread at submit time (pinned, non_blocking),
-        # the workers hold only the solve and its status readbacks, and
-        # results scatter on THIS thread (apply_subgroup mutates per-case
-        # state).  In-flight work is bounded so peak LP memory stays a
-        # few subgroups, not the whole sweep.  With several devices each
-        # batch is split over all of them (solve_group), and ONE worker
-        # runs those split solves: two at once would run two shard
-        # threads on every device and interleave their chunks for no
-        # gain; host assembly still overlaps the in-flight solve.
+        # 2-stage pipeline: host LP assembly of group i overlaps the device
+        # solves of the groups before it.  Stacking + the host->device
+        # upload are STAGED on this thread (pinned, non_blocking), each
+        # worker solves on a CUDA stream of its own (elastic.worker_stream;
+        # StagedGroupData.take orders the upload before the solve), and
+        # results scatter on THIS thread in submission order
+        # (apply_subgroup mutates per-case state; see the elastic branch).
+        # On one card the groups run at once as far as its SMs hold them
+        # (pipeline_admits), and at most max_inflight wait unscattered, so
+        # peak LP memory stays a few subgroups, not the whole sweep.  With
+        # several devices each batch is split over all of them
+        # (solve_group), and ONE worker runs those split solves: two at
+        # once would run two shard threads on every device and interleave
+        # their chunks for no gain; host assembly still overlaps the
+        # in-flight solve.
         import collections
         import concurrent.futures as cf
-        max_inflight = _pipeline_depth(multi_dev)
+        depth, sm_count, max_inflight = _pipeline_limits(cache.device,
+                                                         multi_dev)
+
+        def solve_on_stream(key, items, staged):
+            with _elastic.worker_stream(cache.device) as stream:
+                if stream is not None:
+                    clock.add_stream(stream)
+                return solve_only(key, items, staged)
+
+        futs = collections.deque()      # (future, width), submission order
+
+        def scatter_done():
+            while futs and futs[0][0].done():
+                scatter(*futs.popleft()[0].result())
+                _batch_boundary()
+
+        def admit(width):
+            while True:
+                running = [w for f, w in futs if not f.done()]
+                if len(futs) < max_inflight and pipeline_admits(
+                        running, width, sm_count, depth):
+                    return
+                if futs[0][0].done():
+                    scatter_done()
+                    continue
+                with telemetry_trace.phase("wait"):
+                    cf.wait([f for f, _ in futs if not f.done()],
+                            return_when=cf.FIRST_COMPLETED)
+
         with cf.ThreadPoolExecutor(max_workers=max_inflight) as pool:
-            futs = collections.deque()
             while groups:
                 _, members = groups.popitem()
                 for k, its in split_exact(members).items():
+                    pad_to = _batch_pad_to(cache, len(its), multi_dev)
                     with telemetry_trace.phase("stage",
                                                "dispatch_stage_s") as st:
-                        staged = stage_group_data(
-                            its, solver_opts, cache.device,
-                            pad_to=_batch_pad_to(cache, len(its),
-                                                 multi_dev))
+                        staged = stage_group_data(its, solver_opts,
+                                                  cache.device, pad_to=pad_to)
                         st.set_attr("bytes", getattr(staged, "h2d_bytes", 0))
-                    futs.append(pool.submit(solve_only, k, its, staged))
-                    while len(futs) > max_inflight:
-                        items, result = wait(futs.popleft())
-                        scatter(items, result)
-                        _batch_boundary()
+                    width = pad_to or len(its)
+                    admit(width)
+                    futs.append((pool.submit(solve_on_stream, k, its, staged),
+                                 width))
+                    scatter_done()
             while futs:
-                items, result = wait(futs.popleft())
+                items, result = wait(futs.popleft()[0])
                 scatter(items, result)
                 _batch_boundary()
 
@@ -3238,9 +3403,11 @@ def _dispatch_phases(scenarios, backend, solver_opts, watchdog,
     # breaker summaries, each case's metadata
     with telemetry_trace.phase("finish", cases=len(scenarios)):
         sums = dsp.totals
+        inflight = clock.summary()
+        dsp.set_attrs({"max_inflight": max_inflight, **inflight})
         ledger = summarize_solve_ledger(ledger_entries,
                                         sums.get("dispatch_solve_s", 0.0),
-                                        pipeline_on, max_inflight)
+                                        pipeline_on, max_inflight, inflight)
         if elastic_stats is not None:
             # per-device ledger slices: each device's group-entry walls must
             # account for its busy wall the same way the global entries

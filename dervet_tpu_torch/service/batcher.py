@@ -27,7 +27,7 @@ from ..io.summary import run_health_report
 from ..ops.certify import aggregate_audits
 from ..ops.pdhg import DRIVER_FIELDS
 from ..results.result import Result
-from ..scenario.scenario import MicrogridScenario, run_dispatch
+from ..scenario.scenario import PIPELINE_KEYS, MicrogridScenario, run_dispatch
 from ..telemetry import trace as telemetry_trace
 from ..utils.errors import (AggregatedSolverError, BackendLostError,
                             BreakerOpenError, PoisonRequestError,
@@ -80,7 +80,7 @@ def slice_request_ledger(ledger: Optional[Dict], request_id: str,
         "coalesced_groups": sum(1 for g in groups
                                 if len(g.get("requests") or ()) > 1),
         "round": {k: ledger.get(k) for k in
-                  ("dispatch_solve_s", "pipeline", "max_inflight")},
+                  ("dispatch_solve_s",) + PIPELINE_KEYS},
         "round_totals": ledger.get("totals"),
     }
 

@@ -29,7 +29,10 @@ solve whose check windows replay CUDA graphs is bit-equal to the eager
 window loop (``_Solver.run_chunk``) on the card, for both kernels and
 the plain chunk, with as many kernel launches (the warm-ups before the
 captures set apart), two threads on two streams capture and replay at
-once, and a dropped solver frees its graphs' memory; in a fan-out of
+once, and a dropped solver frees its graphs' memory; the dispatch
+pipeline runs the three B = 24 groups of a three-month demand-charge
+fan-out at once on streams of their own, bit-identical to its serial
+mode; in a fan-out of
 each benchmark configuration's traffic through ``DERVET.solve`` (64
 Battery + PV cases, 32 ICE + CHP + Reliability cases, a year each), the
 ``valuation`` and ``dispatch`` spans' self time — what their children on
@@ -593,6 +596,109 @@ def test_two_elastic_workers_on_card_byte_identical(cuda, monkeypatch):
               if g.get("backend") == "torch"]
     assert groups and all(g["kernel"] == fused_chunk.KERNEL_BANDED
                           and g["kernel_launches"] > 0 for g in groups)
+
+
+def _overlapping_streams(intervals) -> tuple[float, set]:
+    """Of device intervals ``[(stream, start, end)]``: the time during
+    which intervals of two streams run at once, and those streams."""
+    total, pairs = 0.0, set()
+    reach: dict = {}
+    for st, a, b in sorted(intervals, key=lambda iv: iv[1]):
+        for other, end in reach.items():
+            if other != st and end > a:
+                total += min(end, b) - a
+                pairs.add(frozenset((st, other)))
+        reach[st] = max(reach.get(st, a), b)
+    return total, pairs
+
+
+def pipeline_overlap_check(device="cuda:0"):
+    """The body of ``test_pipeline_groups_overlap_on_their_streams``, run
+    in a process of its own: it asserts, and prints what it read."""
+    import os
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dervet_tpu_torch.api import DERVET
+    from dervet_tpu_torch.parallel import elastic
+    from dervet_tpu_torch.scenario import scenario
+
+    cuda = torch.device(device)
+
+    def solve():
+        cases = benchlib.synthetic_sensitivity_cases(24, months=3,
+                                                     retail=True)
+        return DERVET.from_cases(cases).solve(backend="torch", device=cuda)
+
+    os.environ[scenario.PIPELINE_ENV] = "0"
+    serial = solve()
+    del os.environ[scenario.PIPELINE_ENV]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        piped = solve()
+        torch.cuda.synchronize()
+    chunks = [(ev.device_resource_id(), ev.start_ns() * 1e-9,
+               (ev.start_ns() + ev.duration_ns()) * 1e-9)
+              for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA
+              and "dense_chunk_kernel" in ev.name()]
+    both, pairs = _overlapping_streams(chunks)
+    busy = sum(b - a for _, a, b in chunks)
+    led = piped.solve_ledger
+    print(f"chunk kernels {len(chunks)} on {len({c[0] for c in chunks})} "
+          f"streams, {busy:.3f} s, {both:.3f} s on two streams at once; "
+          + ", ".join(f"{k} {led[k]}" for k in scenario.PIPELINE_KEYS))
+    groups = [g for g in led["groups"] if g.get("rung") == "initial"]
+    assert len(groups) == 3 and all(
+        g["batch"] == 24 and g["kernel"] == fused_chunk.KERNEL_DENSE
+        for g in groups), groups
+    assert both > 0 and pairs, (both, pairs)
+    assert led["inflight_peak"] >= 2 and led["worker_streams"] >= 2, led
+    # the workers hand their streams back, and the next dispatch reuses them
+    assert len(elastic._idle_streams[cuda]) <= scenario.PIPELINE_MAX_INFLIGHT
+    assert serial.solve_ledger["inflight_peak"] == 1
+    for k, inst in serial.instances.items():
+        a, b = inst.scenario, piped.instances[k].scenario
+        assert a.objective_values == b.objective_values
+        for name in a._solution:
+            assert np.array_equal(a._solution[name], b._solution[name]), name
+
+
+@pytest.mark.cuda
+def test_pipeline_groups_overlap_on_their_streams(cuda):
+    """A three-month demand-charge fan-out at B = 24 (three dense groups)
+    through the single-card pipeline: the dense chunk kernels of two
+    groups run at once, as intervals of two worker streams that intersect
+    in the profiler's record (a worker runs one group at a time on its
+    stream, and a group's capture stream waits on its worker's), every
+    answer is bit-identical to ``DERVET_TPU_PIPELINE=0``, and the ledger
+    reads two groups in flight or more.
+
+    It runs in a child process: after a profiler run that spans graph
+    captures, later profiler runs of the same process on an H100 (CUDA
+    12) miss the chunk kernels of graphs captured in between, which
+    ``test_window_launches_only_the_kernels`` counts."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from dervet_tpu_torch.scenario import scenario
+
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location("
+            "'card_tests', sys.argv[1])\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "mod.pipeline_overlap_check(sys.argv[2])\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != scenario.PIPELINE_ENV}
+    proc = subprocess.run([sys.executable, "-c", code, __file__, str(cuda)],
+                          cwd=Path(__file__).resolve().parents[1], env=env,
+                          capture_output=True, text=True, timeout=900)
+    print(proc.stdout[-4000:])
+    assert proc.returncode == 0, proc.stderr[-8000:]
 
 
 @pytest.mark.cuda
